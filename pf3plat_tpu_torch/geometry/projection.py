@@ -1,0 +1,105 @@
+"""Pinhole projection / ray geometry on torch tensors.
+
+Port of `pf3plat_tpu/geometry/projection.py` (the functions the serving
+path uses). Conventions are the JAX package's: intrinsics normalized,
+extrinsics OpenCV-style c2w, pixel coordinates normalized to (0, 1) with
+half-pixel centers.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def homogenize_points(points: torch.Tensor) -> torch.Tensor:
+    return torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+
+
+def homogenize_vectors(vectors: torch.Tensor) -> torch.Tensor:
+    return torch.cat([vectors, torch.zeros_like(vectors[..., :1])], dim=-1)
+
+
+def transform_rigid(homogeneous: torch.Tensor, transformation: torch.Tensor) -> torch.Tensor:
+    return torch.einsum("...ij,...j->...i", transformation, homogeneous)
+
+
+def se3_inverse(m: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of a rigid 4x4 transform (R|t)."""
+    r = m[..., :3, :3]
+    t = m[..., :3, 3:]
+    r_inv = r.transpose(-1, -2)
+    t_inv = -torch.matmul(r_inv, t)
+    top = torch.cat([r_inv, t_inv], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=m.dtype, device=m.device)
+    bottom = bottom.expand(top[..., :1, :].shape)
+    return torch.cat([top, bottom], dim=-2)
+
+
+def intrinsics_inverse(k: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of K = [[fx, s, cx], [0, fy, cy], [0, 0, 1]]."""
+    fx, s, cx = k[..., 0, 0], k[..., 0, 1], k[..., 0, 2]
+    fy, cy = k[..., 1, 1], k[..., 1, 2]
+    one = torch.ones_like(fx)
+    zero = torch.zeros_like(fx)
+    inv_fx = one / fx
+    inv_fy = one / fy
+    row0 = torch.stack(
+        [inv_fx, -s * inv_fx * inv_fy, (s * cy - cx * fy) * inv_fx * inv_fy],
+        dim=-1,
+    )
+    row1 = torch.stack([zero, inv_fy, -cy * inv_fy], dim=-1)
+    row2 = torch.stack([zero, zero, one], dim=-1)
+    return torch.stack([row0, row1, row2], dim=-2)
+
+
+def unproject(coordinates: torch.Tensor, z: torch.Tensor, intrinsics: torch.Tensor) -> torch.Tensor:
+    """Normalized pixel xy + depth (z along the optical axis) -> camera xyz."""
+    coords_h = homogenize_points(coordinates)
+    directions = torch.einsum(
+        "...ij,...j->...i", intrinsics_inverse(intrinsics), coords_h
+    )
+    return directions * z[..., None]
+
+
+def get_world_rays(
+    coordinates: torch.Tensor, extrinsics: torch.Tensor, intrinsics: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized pixel xy -> (world ray origins, unit world directions)."""
+    directions = unproject(
+        coordinates, torch.ones_like(coordinates[..., 0]), intrinsics
+    )
+    directions = directions / torch.linalg.norm(directions, dim=-1, keepdim=True)
+    directions = homogenize_vectors(directions)
+    directions = transform_rigid(directions, extrinsics)[..., :-1]
+    origins = extrinsics[..., :-1, -1].expand(directions.shape)
+    return origins, directions
+
+
+def sample_image_grid(
+    shape: tuple[int, int], dtype=torch.float32, device=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Normalized (0, 1) xy coordinates + integer ij indices of an image grid."""
+    indices = [torch.arange(n, device=device) for n in shape]
+    stacked = torch.stack(torch.meshgrid(*indices, indexing="ij"), dim=-1)
+    coords = [(idx.to(dtype) + 0.5) / n for idx, n in zip(indices, shape)]
+    coords = list(reversed(coords))
+    coordinates = torch.stack(torch.meshgrid(*coords, indexing="xy"), dim=-1)
+    return coordinates, stacked
+
+
+def get_fov(intrinsics: torch.Tensor) -> torch.Tensor:
+    """Horizontal/vertical field of view (radians) from normalized intrinsics."""
+    k_inv = intrinsics_inverse(intrinsics)
+
+    def bearing(vector):
+        vec = torch.tensor(vector, dtype=intrinsics.dtype, device=intrinsics.device)
+        v = torch.einsum("...ij,j->...i", k_inv, vec)
+        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+
+    left = bearing([0.0, 0.5, 1.0])
+    right = bearing([1.0, 0.5, 1.0])
+    top = bearing([0.5, 0.0, 1.0])
+    bottom = bearing([0.5, 1.0, 1.0])
+    fov_x = torch.arccos(torch.clamp((left * right).sum(-1), -1.0, 1.0))
+    fov_y = torch.arccos(torch.clamp((top * bottom).sum(-1), -1.0, 1.0))
+    return torch.stack([fov_x, fov_y], dim=-1)
