@@ -8,19 +8,33 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. device  - GPU name and power limit (nvidia-smi), kernel build time;
-  2. b1/b2   - the hand-written kernels (compact_pairs = B1,
-               composite_fwd = B2) against their plain PyTorch versions on
-               bench.py's scene (2 views, 131,072 gaussians);
-  3. serve   - the full-width RE10K serving request (b=1, v=5, 256x256,
+  1. device  - GPU name and power limit (nvidia-smi), build of the four
+               kernel libraries;
+  2. b1..b4_bench - the hand-written kernels (compact_pairs = B1,
+               composite_fwd = B2, composite_bwd = B3, dup_reduce = B4)
+               against their plain PyTorch versions on bench.py's scene
+               (2 views, 131,072 gaussians; a fixed upstream gradient from
+               numpy seed 1 for B3 and B4);
+  3. render_fwd_bwd - the bench scene through `render`, forward and
+               backward with autograd: ms and Mrays/s (bench.py's
+               definition), and the rasterizer's gradients against the same
+               screen-space gaussians rendered on the CPU (plain versions);
+  4. serve   - the full-width RE10K serving request (b=1, v=5, 256x256,
                ViT-L UniDepth, 1024 keypoints, 9 LightGlue layers, 128 depth
                candidates, SH degree 4, production rasterizer config), random
-               weights from a seed: a warm-up, then 3 timed requests with the
-               launch counters zeroed just before and read just after;
-  4. b1/b2 on the serving request's own projected gaussians (the shapes of
-     the main path), and a reference check: the served view rendered on the
-     CPU through the plain versions agrees with the card;
-  5. the kernels line, the nvidia-smi line, and the final
+               weights from a seed, under torch.no_grad(): a warm-up, then 3
+               timed requests with the launch counters zeroed just before and
+               read just after; then b1/b2 on the served request's own
+               gaussians and a CPU reference render of one view;
+  5. train   - the training step of record (configs/re10k.yaml: the same
+               model, b=3, v=3 at 256x256 with the target stack = the
+               context stack, LossCfg(), OptimizerCfg()), random weights from
+               a seed: a warm-up step, then 3 timed steps split into
+               perceive / encoder / decoder / loss / backward / optimizer by
+               CUDA events, with the launch counters zeroed just before and
+               read just after; then b1..b4 on the warm-up step's own render
+               inputs (9 cameras of 131,072 gaussians);
+  6. the kernels line, the nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without CUDA, or outside a checkout of the
@@ -29,6 +43,7 @@ repository, it fails before printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -40,6 +55,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 SEED = 0
 TOL_B2 = 1e-5
+# B3 per channel: max|kernel - plain| <= TOL_B3 * max|plain| (256-pixel sums
+# taken in another order); B4 bit-exact.
+TOL_B3 = 1e-4
+# Operations per (pixel, in-segment pair) evaluation, counted from the
+# kernels' sources: B2 ~20 FP32 + 3 SFU; B3 repeats B2's forward sweep and
+# adds ~59 in its reverse sweep (see csrc/composite_bwd.cu).
+OPS_B2, OPS_B3 = 23, 82
 # Published H100 peaks (NVIDIA data sheet; SXM part, PCIe part).
 PEAKS = {"sxm": dict(bw=3.35e12, fp32=67e12), "pcie": dict(bw=2.0e12, fp32=51e12)}
 
@@ -174,7 +196,7 @@ def check_b2(screen, image_shape, background, config, tag: str) -> dict:
     plain_ms = cuda_ms(lambda: streamed.composite_fwd_plain(**args), 3, warmup=1)
     n_chunks = config.tile_capacity // config.chunk + 1
     moved = pairs * 36 + rows * (4 * 4 + 12) + rows * 256 * 4 * (3 + 1 + n_chunks)
-    ops = evaluations * 23  # ~20 FP32 ops + 3 SFU ops (exp, log1p, exp) per evaluation
+    ops = evaluations * OPS_B2
     pk = peaks()
     t_bytes, t_ops = moved / pk["bw"] * 1e3, ops / pk["fp32"] * 1e3
     row = dict(phase=f"b2_{tag}", max_abs_err=max(errs), err_img=errs[0], err_tfin=errs[1],
@@ -185,22 +207,173 @@ def check_b2(screen, image_shape, background, config, tag: str) -> dict:
     return row
 
 
-def serve_config():
+def check_backward(screen, image_shape, background, config, tag: str):
+    """Kernels B3 and B4 vs their plain versions on the same inputs: the
+    sorted pairs and B2's checkpoints of `screen`, and a fixed upstream
+    image gradient from numpy seed 1. -> (B3 row, B4 row)."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import compact, streamed
+
+    args, extra = streamed.prepare_streamed(screen, image_shape, background, config)
+    _, tfin, tchk = streamed.composite_fwd_cuda(**args)
+    rows = args["base"].shape[0]
+    g_tiles = torch.as_tensor(
+        np.random.default_rng(1).standard_normal((rows, args["channels"], 256)).astype(np.float32),
+        device="cuda")
+    bwd = dict(featP=args["featP"], base=args["base"], off=args["off"], counts=args["counts"],
+               tile_ids=args["tile_ids"], nproc=streamed.n_processed(tchk),
+               bg_rows=args["bg_rows"], tfin=tfin, tchk=tchk, g_tiles=g_tiles,
+               tiles_x=args["tiles_x"], channels=args["channels"], config=config)
+    got = streamed.composite_bwd_cuda(**bwd)
+    ref = streamed.composite_bwd_plain(**bwd)
+    errs = {}
+    for name, a, r in (("dP", got[0], ref[0]), ("dbg", got[1], ref[1])):
+        for k in range(a.shape[0] if name == "dP" else a.shape[1]):
+            ak, rk = (a[k], r[k]) if name == "dP" else (a[:, k], r[:, k])
+            err = float((ak - rk).abs().max())
+            scale = float(rk.abs().max())
+            if not (math.isfinite(err) and err <= TOL_B3 * scale):
+                raise AssertionError(f"B3 {tag}: {name}[{k}] max abs err {err} > "
+                                     f"{TOL_B3} * {scale}")
+            errs[f"{name}{k}"] = err
+    pairs = int(args["counts"].sum())
+    evaluations = 256 * pairs
+    ms = cuda_ms(lambda: streamed.composite_bwd_cuda(**bwd), 10)
+    plain_ms = cuda_ms(lambda: streamed.composite_bwd_plain(**bwd), 2, warmup=1)
+    n_cols = args["featP"].shape[1]
+    n_chunks = config.tile_capacity // config.chunk + 1
+    moved = (2 * 36 * n_cols + rows * 4 * 5 + rows * 12 * 2
+             + rows * 256 * 4 * (n_chunks + 1 + args["channels"]))
+    pk = peaks()
+    t_bytes, t_ops = moved / pk["bw"] * 1e3, evaluations * OPS_B3 / pk["fp32"] * 1e3
+    b3 = dict(phase=f"b3_{tag}", max_abs_err=max(errs.values()), errs=errs, tol_rel=TOL_B3,
+              ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+              bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
+              pairs_in_segments=pairs, evaluations=evaluations)
+    emit(b3)
+
+    # B4 on the unsorted kernel gradients (the backward's own order)
+    b, n = screen.depth.shape
+    ids_u, perm = torch.sort(extra["ids_sorted"])
+    grads = got[0][:, : ids_u.numel()][:, perm].contiguous()
+    ids_u = ids_u.contiguous()
+    n_gauss, max_dup = b * n, config.max_dup
+    red = compact.dup_reduce_cuda(grads, ids_u, n_gauss, max_dup)
+    red_ref = compact.dup_reduce_plain(grads, ids_u, n_gauss, max_dup)
+    if not torch.equal(red.view(torch.int32), red_ref.view(torch.int32)):
+        raise AssertionError(f"B4 {tag}: sums differ from the plain version")
+    real = int((ids_u < n_gauss * max_dup).sum())
+    owner = (ids_u[:real] // max_dup).to(torch.int64)
+    written = grads[:, :real]
+    ms = cuda_ms(lambda: compact.dup_reduce_cuda(grads, ids_u, n_gauss, max_dup), 20)
+    plain_ms = cuda_ms(lambda: compact.dup_reduce_plain(grads, ids_u, n_gauss, max_dup), 5)
+    library_ms = cuda_ms(
+        lambda: torch.zeros(9, n_gauss, device="cuda").index_add_(1, owner, written), 20)
+    moved = grads.numel() * 4 + ids_u.numel() * 4 + red.numel() * 4
+    b4 = dict(phase=f"b4_{tag}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+              library_ms=library_ms, bound_ms=moved / pk["bw"] * 1e3, bound_by="bytes",
+              rows=ids_u.numel(), real_rows=real, gaussians=n_gauss)
+    emit(b4)
+    return b3, b4
+
+
+def render_fwd_bwd(scene, config):
+    """The bench scene through `render`, forward and backward: ms and
+    Mrays/s (bench.py:245-246: 2 views x 256 x 256 rays over the fwd+bwd
+    time); then the rasterizer's gradients on the card against the same
+    screen-space gaussians rendered on the CPU through the plain versions,
+    per field at the B3 tolerance. (The projection is left out of that
+    comparison: the two devices round it differently, which can reorder
+    near-equal depth keys.)"""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import render
+    from pf3plat_tpu_torch.ops.rasterizer.streamed import composite_streamed_batched
+    from pf3plat_tpu_torch.ops.rasterizer.types import ScreenGaussians
+
+    diff = ("means", "covariances", "sh", "opacities", "background")
+    leaves = {k: scene[k].clone().requires_grad_(k in diff) for k in scene}
+    tgt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3)).astype(
+        np.float32), device="cuda")
+
+    def step():
+        for k in diff:
+            leaves[k].grad = None
+        img = render(**leaves, far=leaves["near"] * 100, image_shape=(256, 256),
+                     config=config, device="cuda")
+        ((img - tgt) ** 2).mean().backward()
+
+    ms = cuda_ms(step, 10)
+    rays = 2 * 256 * 256
+    grads_finite = all(bool(torch.isfinite(leaves[k].grad).all()) for k in diff)
+    if not grads_finite:
+        raise AssertionError("render_fwd_bwd: non-finite gradients")
+
+    screen = project(scene, (256, 256), config)
+    fields = ("xy", "conic", "opacity", "color")
+    errs = {}
+    outs = []
+    for dev in ("cuda", "cpu"):
+        scr = {f: getattr(screen, f).detach().to(dev).clone() for f in ScreenGaussians._fields}
+        bg = scene["background"].detach().to(dev).clone().requires_grad_(True)
+        for f in fields:
+            scr[f].requires_grad_(True)
+        img = composite_streamed_batched(ScreenGaussians(**scr), (256, 256), bg, config)
+        ((img - tgt.to(dev)) ** 2).mean().backward()
+        outs.append([scr[f].grad.cpu() for f in fields] + [bg.grad.cpu()])
+    for name, a, r in zip(fields + ("background",), *outs):
+        err = float((a - r).abs().max())
+        scale = float(r.abs().max())
+        if not (math.isfinite(err) and err <= TOL_B3 * scale):
+            raise AssertionError(f"render_fwd_bwd: d{name} card vs CPU {err} > {TOL_B3} * {scale}")
+        errs[name] = err
+    emit(dict(phase="render_fwd_bwd", ms=ms, mrays_per_s=rays / (ms * 1e-3) / 1e6,
+              grad_err_vs_cpu=errs, tol_rel=TOL_B3))
+
+
+def model_config():
     from pf3plat_tpu_torch.models.backbones.unidepth import UniDepthCfg
     from pf3plat_tpu_torch.models.decoder import DecoderCfg
     from pf3plat_tpu_torch.models.encoder import EncoderCfg
     from pf3plat_tpu_torch.models.gaussian_adapter import GaussianAdapterCfg
     from pf3plat_tpu_torch.models.pf3plat import PF3platCfg
 
-    # configs/re10k_test.yaml through main.build_model: EncoderCfg() with
-    # 128 depth candidates and SH degree 4, DecoderCfg() (streamed,
-    # production rasterizer config), UniDepthCfg() = ViT-L/14.
+    # configs/re10k.yaml and re10k_test.yaml through main.build_model:
+    # EncoderCfg() with 128 depth candidates and SH degree 4, DecoderCfg()
+    # (streamed, production rasterizer config), UniDepthCfg() = ViT-L/14.
     return PF3platCfg(
         encoder=EncoderCfg(num_depth_candidates=128,
                            gaussian_adapter=GaussianAdapterCfg(sh_degree=4)),
         decoder=DecoderCfg(), unidepth=UniDepthCfg(),
         max_keypoints=1024, max_matches=512, lightglue_layers=9,
     )
+
+
+@contextlib.contextmanager
+def capture_decode():
+    """Record the decoder's inputs (decode -> render) of the model calls
+    made inside the block: the render scene of the main path."""
+    import pf3plat_tpu_torch.models.pf3plat as pf3plat_mod
+
+    captured = {}
+    decode = pf3plat_mod.decode
+
+    def recording(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape,
+                  depth_mode=None):
+        captured.update(gaussians=type(gaussians)(*(x.detach() for x in gaussians)),
+                        extrinsics=extrinsics.detach(), intrinsics=intrinsics.detach(),
+                        near=near.detach())
+        return decode(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape,
+                      depth_mode=depth_mode)
+
+    pf3plat_mod.decode = recording
+    try:
+        yield captured
+    finally:
+        pf3plat_mod.decode = decode
 
 
 def serve(n_requests: int = 3):
@@ -212,7 +385,7 @@ def serve(n_requests: int = 3):
 
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = PF3plat(serve_config(), device="cuda")
+    model = PF3plat(model_config(), device="cuda")
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     b, v, h, w = 1, 5, 256, 256
@@ -225,9 +398,11 @@ def serve(n_requests: int = 3):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def request(timer=None):
-        return model(images, intr, near, far, 0, generator=gen, timer=timer)
+        with torch.no_grad():
+            return model(images, intr, near, far, 0, generator=gen, timer=timer)
 
-    warm = request()  # warm-up: allocator, cuBLAS/cuDNN plans, kernel load
+    with capture_decode() as captured:
+        request()  # warm-up: allocator, cuBLAS/cuDNN plans, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -265,6 +440,7 @@ def serve(n_requests: int = 3):
         if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"serve: {name} has shape {tuple(x.shape)} (want {shape}) "
                                  "or non-finite values")
+    launches = {k: launches[k] for k in ("compact_pairs", "composite_fwd")}
     for name, count in launches.items():
         if count < n_requests:
             raise AssertionError(f"serve: kernel {name} launched {count} times in "
@@ -273,22 +449,93 @@ def serve(n_requests: int = 3):
               max_memory_allocated_bytes=peak, launches=launches,
               matches_valid=int(enc.correspondences.valid.sum()),
               color_mean=float(out.color.mean())))
-    return warm, launches
+    return captured, launches
 
 
-def serving_scene(warm):
-    """The decoder's render inputs for the served request (decode + render)."""
+def train(n_steps: int = 3):
+    """The training step of record on the card: a warm-up step (its render
+    inputs are kept for the kernel checks), then `n_steps` timed steps."""
+    import numpy as np
     import torch
 
-    enc, _ = warm
-    g = enc.gaussians
-    v = enc.refined_poses.shape[1]
-    c2w = torch.linalg.inv(enc.refined_poses)[0]
-    intr = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], device="cuda").expand(v, 3, 3)
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training.losses import LossCfg
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, init_train_state, make_model_train_step)
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(), device="cuda")
+    rng = np.random.default_rng(SEED)
+    # re10k.yaml: b=3, 2 context views + 1 target spliced by the union
+    # trick (the target stack is the context stack), 256x256
+    b, v, h, w = 3, 3, 256, 256
+    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
+    intr = torch.as_tensor(np.broadcast_to(
+        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
+        device="cuda")
+    batch = dict(context=dict(image=images, intrinsics=intr, near=torch.ones((b, v), device="cuda"),
+                              far=torch.full((b, v), 100.0, device="cuda")),
+                 target=dict(image=images))
+    step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg())
+    state = init_train_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    with capture_decode() as captured:
+        state, warm_aux = step_fn(state, batch, generator=gen)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    stages = ("perceive", "encoder", "decoder", "loss", "backward", "optimizer")
+    per_step = []
+    for _ in range(n_steps):
+        events = {"start": torch.cuda.Event(enable_timing=True)}
+
+        def timer(stage, events=events):
+            events[stage] = torch.cuda.Event(enable_timing=True)
+            events[stage].record()
+
+        before = dict(kernels.LAUNCHES)
+        wall0 = time.perf_counter()
+        events["start"].record()
+        state, aux = step_fn(state, batch, generator=gen, timer=timer)
+        torch.cuda.synchronize()
+        row = dict(total_ms=(time.perf_counter() - wall0) * 1e3)
+        missing = [k for k, n in kernels.LAUNCHES.items() if n == before[k]]
+        if missing:
+            raise AssertionError(f"train: kernels {missing} not launched in a step")
+        prev = "start"
+        for stage in stages:
+            row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
+            prev = stage
+        row.update({k: float(x) for k, x in aux.items()})
+        per_step.append(row)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for row in per_step:
+        bad = [k for k, x in row.items() if not math.isfinite(x)]
+        if bad:
+            raise AssertionError(f"train: non-finite {bad}")
+    emit(dict(phase="train", batch=[b, v, h, w], steps=per_step, max_memory_allocated_bytes=peak,
+              launches=launches, warmup_loss=float(warm_aux["loss"])))
+    del model, state, step_fn
+    torch.cuda.empty_cache()
+    return captured, launches
+
+
+def render_scene(captured):
+    """The decoder's render inputs (decode -> render), flattened to b*v
+    cameras with each batch element's gaussians repeated per view."""
+    import torch
+
+    g = captured["gaussians"]
+    b, v = captured["extrinsics"].shape[:2]
     rep = lambda x: x.repeat_interleave(v, dim=0)  # noqa: E731
-    return dict(extrinsics=c2w, intrinsics=intr, near=torch.ones(v, device="cuda"),
-                means=rep(g.means), covariances=rep(g.covariances), sh=rep(g.harmonics),
-                opacities=rep(g.opacities), background=torch.zeros((v, 3), device="cuda"))
+    return dict(extrinsics=captured["extrinsics"].reshape(b * v, 4, 4),
+                intrinsics=captured["intrinsics"].reshape(b * v, 3, 3),
+                near=captured["near"].reshape(b * v), means=rep(g.means),
+                covariances=rep(g.covariances), sh=rep(g.harmonics), opacities=rep(g.opacities),
+                background=torch.zeros((b * v, 3), device="cuda"))
 
 
 def reference_check(scene, config):
@@ -342,33 +589,54 @@ def main(argv) -> int:
     screen = project(scene, (256, 256), config)
     check_b1(screen, (256, 256), config, "bench")
     check_b2(screen, (256, 256), scene["background"], config, "bench")
-    del scene, screen
+    check_backward(screen, (256, 256), scene["background"], config, "bench")
+    del screen
 
     if "--kernels" in argv:
         return 0
 
-    warm, launches = serve()
-    scene = serving_scene(warm)
+    render_fwd_bwd(scene, config)
+    del scene
+
+    captured, serve_launches = serve()
+    scene = render_scene(captured)
+    screen = project(scene, (256, 256), config)
+    check_b1(screen, (256, 256), config, "serve")
+    check_b2(screen, (256, 256), scene["background"], config, "serve")
+    reference_check(scene, config)
+    del captured, scene, screen
+    torch.cuda.empty_cache()
+
+    captured, launches = train()
+    scene = render_scene(captured)
     screen = project(scene, (256, 256), config)
     rows = {
-        "compact_pairs": check_b1(screen, (256, 256), config, "serve"),
-        "composite_fwd": check_b2(screen, (256, 256), scene["background"], config, "serve"),
+        "compact_pairs": check_b1(screen, (256, 256), config, "train"),
+        "composite_fwd": check_b2(screen, (256, 256), scene["background"], config, "train"),
     }
-    reference_check(scene, config)
+    rows["composite_bwd"], rows["dup_reduce"] = check_backward(
+        screen, (256, 256), scene["background"], config, "train")
 
     meta = {
         "compact_pairs": ("pf3plat_tpu_torch/csrc/compact_pairs.cu",
                           "pf3plat_tpu/ops/rasterizer/compact.py:87"),
         "composite_fwd": ("pf3plat_tpu_torch/csrc/composite_fwd.cu",
                           "pf3plat_tpu/ops/rasterizer/streamed.py:365"),
+        "composite_bwd": ("pf3plat_tpu_torch/csrc/composite_bwd.cu",
+                          "pf3plat_tpu/ops/rasterizer/streamed.py:588"),
+        "dup_reduce": ("pf3plat_tpu_torch/csrc/dup_reduce.cu",
+                       "pf3plat_tpu/ops/rasterizer/compact.py:448"),
     }
+    # launches: the training path's 3 timed steps (B1 and B2 also ran on the
+    # serving path: `launches_serve`); times at the training step's shapes
     line = []
     for name, (src, replaces) in meta.items():
         r = rows[name]
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
-                         launches=launches[name], max_abs_err=r["max_abs_err"],
-                         ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-                         bound_by=r["bound_by"], library_ms=r["library_ms"]))
+                         launches=launches[name], launches_serve=serve_launches.get(name, 0),
+                         max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         library_ms=r["library_ms"]))
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

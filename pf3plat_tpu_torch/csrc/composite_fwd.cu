@@ -24,10 +24,13 @@
 // tile_size^2 threads per tile row (one thread per pixel); each chunk's
 // 9 x chunk feature rows are staged through shared memory cooperatively,
 // then every thread walks them in order and stops at its first dead pair.
-// Deterministic, no atomics.
+// Deterministic, no atomics. The alpha of a (pixel, pair) comes from
+// composite_alpha.cuh, shared with the backward (B3), which recomputes it.
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "composite_alpha.cuh"
 
 namespace {
 
@@ -78,15 +81,9 @@ __global__ void composite_fwd_kernel(
     float t_last = T;
     bool any_alive = false;
     for (int j = j_lo; j < j_hi; ++j) {
-      const float dx = px - sm[j];
-      const float dy = py - sm[chunk + j];
-      const float ca = sm[2 * chunk + j];
-      const float cb = sm[3 * chunk + j];
-      const float cc = sm[4 * chunk + j];
-      const float op = sm[5 * chunk + j];
-      const float power = -0.5f * (ca * dx * dx + cc * dy * dy) - cb * dx * dy;
-      float alpha = fminf(op * expf(fminf(power, 0.0f)), alpha_clamp);
-      if (!(power <= 0.0f && alpha >= alpha_min)) alpha = 0.0f;
+      const float alpha = pair_alpha(px, py, sm[j], sm[chunk + j], sm[2 * chunk + j],
+                                     sm[3 * chunk + j], sm[4 * chunk + j], sm[5 * chunk + j],
+                                     alpha_clamp, alpha_min).alpha;
       incl += log1pf(-alpha);
       const float t_after = T * expf(incl);
       if (!(t_after >= t_min)) break;  // every later pair of the chunk is dead

@@ -58,8 +58,8 @@ def warp_with_pose_depth_candidates(feature, intrinsics, pose, depth, clamp_min_
     pts = rot[:, None] * depth[:, :, None, None] + pose[:, None, None, :3, 3]
     proj = torch.einsum("bij,bdnj->bdni", intrinsics, pts)
     z = torch.clamp(proj[..., 2], min=clamp_min_depth)
-    px = (proj[..., 0] / z).reshape(b, d * h * w)
-    py = (proj[..., 1] / z).reshape(b, d * h * w)
+    px = (proj[..., 0] / z).detach().reshape(b, d * h * w)
+    py = (proj[..., 1] / z).detach().reshape(b, d * h * w)
     return bilinear_sample(feature, px, py).reshape(b, d, h, w, c)
 
 
@@ -138,7 +138,7 @@ class DepthPredictorMultiView(Named):
         intr_pix = intrinsics.clone()
         intr_pix[..., 0, :] = intr_pix[..., 0, :] * w4
         intr_pix[..., 1, :] = intr_pix[..., 1, :] * h4
-        intr_vb = intr_pix.transpose(0, 1).reshape(v * b, 3, 3)
+        intr_vb = intr_pix.transpose(0, 1).reshape(v * b, 3, 3).detach()
 
         inv_near = 1.0 / near
         inv_far = 1.0 / far

@@ -210,7 +210,7 @@ class PoseFreeEncoder(nn.Module):
         inv_far = (1.0 / far).reshape(b * v)[:, None, None, None]
         hyp = inv_far + torch.linspace(0.0, 1.0, dc, device=dev, dtype=dt) * (inv_near - inv_far)
         idx = torch.argmin(torch.abs(disp4 - hyp), dim=-1)
-        mono_cue_bv = torch.nn.functional.one_hot(idx, dc).to(dt)
+        mono_cue_bv = torch.nn.functional.one_hot(idx, dc).to(dt).detach()
 
         # ---- unproject refined depth ----
         xy_grid, _ = sample_image_grid((h, w), dt, dev)
@@ -240,7 +240,8 @@ class PoseFreeEncoder(nn.Module):
             thr = cfg.ransac_threshold * torch.clamp(
                 torch.quantile(x_j[..., 2], 0.5, dim=-1), min=1e-3)
             fit = procrustes.align_ransac(
-                x_i, x_j, weights, ransac_noise[:, p], threshold=thr)
+                x_i.detach(), x_j.detach(), weights, ransac_noise[:, p],
+                threshold=thr.detach())
             rel = make_rt(fit.r, fit.t)
             enough = (valid.sum(-1) >= 8)[:, None, None]
             rel_list.append(torch.where(enough, rel, eye4))
@@ -264,6 +265,7 @@ class PoseFreeEncoder(nn.Module):
             chain = camera_sync.camera_chaining(rel_poses[:, seq])
             sync_abspose = camera_sync.camera_synchronization(
                 rel_poses, confs, pair_i, pair_j, v, fallback=chain)
+        sync_abspose = sync_abspose.detach()  # (b, v, 4, 4) w2c
 
         # ---- pose refinement transformer ----
         dp = cfg.d_pose

@@ -74,7 +74,7 @@ def adapt_gaussians(cfg: GaussianAdapterCfg, extrinsics, intrinsics, coordinates
     sh = sh.unflatten(-1, (3, cfg.d_sh)) * sh_mask(cfg, dt, dev)
 
     covariances = build_covariance(scales, rotations)
-    c2w_rot = extrinsics[..., :3, :3]
+    c2w_rot = extrinsics[..., :3, :3].detach()
     covariances = torch.einsum("...ij,...jk,...lk->...il", c2w_rot, covariances, c2w_rot)
 
     origins, directions = get_world_rays(coordinates, extrinsics, intrinsics)

@@ -1,10 +1,13 @@
 """PF3plat model: frozen perception + matcher + encoder + splat decoder.
 
-Port of `pf3plat_tpu/models/pf3plat.py` (`perceive`, `forward`; LPIPS and
-parameter init by example batch are not ported in this slice). `PF3plat`
+Port of `pf3plat_tpu/models/pf3plat.py` (`perceive`, `forward`,
+`lpips_apply`; parameter init by example batch is not ported). `PF3plat`
 is an `nn.Module` placed on `device` (default `cuda`; without a GPU it
-raises unless `device="cpu"`). `forward` is the serving path: images in,
-poses, Gaussians and rendered views out, under `torch.no_grad()`.
+raises unless `device="cpu"`). `forward` serves (callers wrap it in
+`torch.no_grad()`) and trains: `perceive` always runs without gradients
+(the JAX package's stop-gradients, `pf3plat.py:117-125`), so gradients
+reach only the encoder. The frozen modules (UniDepth, SuperPoint,
+LightGlue, the LPIPS VGG) never require gradients.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from .backbones.lightglue import LightGlue
 from .backbones.matching import match_context_views
 from .backbones.superpoint import SuperPoint
 from .backbones.unidepth import UniDepth, UniDepthCfg
+from .backbones.vgg_lpips import LPIPS
 from .decoder import DecoderCfg, decode
 from .encoder import Correspondences, EncoderCfg, EncoderOutput, FrozenInputs, PoseFreeEncoder
 from .types import DecoderOutput
@@ -49,6 +53,9 @@ class PF3plat(nn.Module):
         self.unidepth = UniDepth(cfg.unidepth)
         self.superpoint = SuperPoint(max_num_keypoints=cfg.max_keypoints)
         self.lightglue = LightGlue(n_layers=cfg.lightglue_layers)
+        self.lpips = LPIPS()
+        for frozen in (self.unidepth, self.superpoint, self.lightglue, self.lpips):
+            frozen.requires_grad_(False)
         self.to(self.device)
         self.eval()
 
@@ -61,7 +68,7 @@ class PF3plat(nn.Module):
                  ) -> tuple[FrozenInputs, Correspondences]:
         """Frozen stage: monocular depth + features + correspondences."""
         b, v, h, w, _ = images.shape
-        with self._frozen_precision():
+        with torch.no_grad(), self._frozen_precision():
             out = self.unidepth(images.reshape(b * v, h, w, 3), intrinsics.reshape(b * v, 3, 3))
             corr = match_context_views(self.superpoint, self.lightglue, images,
                                        max_matches=self.cfg.max_matches)
@@ -72,7 +79,11 @@ class PF3plat(nn.Module):
                                corr.scores.float(), corr.valid)
         return FrozenInputs(depth=depth, features=feats), corr
 
-    @torch.no_grad()
+    def lpips_apply(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
+        """Frozen LPIPS distance (b, h, w, 3) x2 -> (b,); the gradient flows
+        to the images, not to the VGG (`pf3plat.py:128-138`)."""
+        return self.lpips(img0, img1)
+
     def forward(
         self,
         images: torch.Tensor,       # (b, v, h, w, 3) context stack

@@ -1,7 +1,10 @@
-"""Public rasterizer API: batched rendering (forward).
+"""Public rasterizer API: batched rendering, differentiable.
 
 Port of `pf3plat_tpu/ops/rasterizer/api.py:render` with the `streamed`
-(production) and `bruteforce` (oracle) backends. The JAX package's `tiled`
+(production; its backward is `streamed.StreamedRasterize`) and
+`bruteforce` (oracle; plain autograd) backends. Gradients reach the
+means, covariances, SH, opacities and background, and through the
+projection the extrinsics. The JAX package's `tiled`
 and `pallas` backends, `render_depth` and `render_orthographic` are not
 ported in this slice.
 """

@@ -1,7 +1,9 @@
-"""Pair compaction for the streamed rasterizer (kernel B1 + plain version).
+"""Pair compaction for the streamed rasterizer (kernel B1) and the
+per-gaussian gradient reduce of its backward (kernel B4), each with its
+plain version.
 
 Port of `pf3plat_tpu/ops/rasterizer/compact.py` (`pairs_budget`,
-`compact_pairs`). The JAX package expands every gaussian into `max_dup`
+`compact_pairs`, `banded_dup_reduce`). The JAX package expands every gaussian into `max_dup`
 slot-major candidate pairs and compacts the valid ones into a static
 `budget`-row plane before the binning sort. The port keeps the candidate
 stream as structure-of-arrays (valid flag, tile key, depth key, pair id,
@@ -14,6 +16,10 @@ stream as structure-of-arrays (valid flag, tile key, depth key, pair id,
 `compact_candidates` takes the plain version only for CPU tensors; for a
 CUDA tensor it launches the kernel or raises. Both are bit-exact: rows,
 order, the overflow rule and both counts match the JAX kernel.
+
+`dup_reduce` (kernel B4, `csrc/dup_reduce.cu`, replacing
+`compact.py:_banded_reduce_kernel`) sums each gaussian's <= max_dup
+gradient rows; `dup_reduce_plain` is its plain version, bit for bit.
 """
 
 from __future__ import annotations
@@ -242,3 +248,52 @@ def compact_pairs(
         written=out["counts"][0], total=out["counts"][1], budget=budget,
         bits_d=cand["bits_d"],
     )
+
+
+def dup_reduce_plain(grads, ids, n_gauss: int, max_dup: int):
+    """Plain PyTorch version of kernel B4 (the same sums, bit for bit).
+
+    grads (9, budget) f32 in ascending pair-id order, ids (budget,) i32
+    ascending with INT32_MAX pads -> (9, n_gauss): each gaussian's sum over
+    the rows it owns (owner = id // max_dup), added in ascending-id order
+    from 0.0. Rows scatter into (n_gauss * max_dup, 9) slots at their id
+    (pads are dropped), then the slots are added one after the other."""
+    slots = torch.zeros((n_gauss * max_dup, grads.shape[0]), dtype=grads.dtype,
+                        device=grads.device)
+    real = ids < n_gauss * max_dup
+    slots[ids[real].to(torch.int64)] = grads[:, real].T
+    slots = slots.view(n_gauss, max_dup, grads.shape[0])
+    out = torch.zeros((n_gauss, grads.shape[0]), dtype=grads.dtype, device=grads.device)
+    for k in range(max_dup):
+        out = out + slots[:, k]
+    return out.T.contiguous()
+
+
+def dup_reduce_cuda(grads, ids, n_gauss: int, max_dup: int):
+    """Kernel B4 on the card (`csrc/dup_reduce.cu`)."""
+    dev = grads.device
+    if dev.type != "cuda":
+        raise ValueError("dup_reduce_cuda needs CUDA tensors")
+    if grads.dtype != torch.float32 or grads.dim() != 2 or grads.shape[0] != N_FEAT \
+            or not grads.is_contiguous():
+        raise ValueError("grads: want a contiguous (9, n) float32 tensor")
+    if ids.device != dev or ids.dtype != torch.int32 or tuple(ids.shape) != (grads.shape[1],) \
+            or not ids.is_contiguous():
+        raise ValueError(f"ids: want a contiguous ({grads.shape[1]},) int32 tensor on {dev}")
+    out = torch.empty((N_FEAT, n_gauss), dtype=torch.float32, device=dev)
+    ct = kernels.ctypes
+    fn = kernels.load("dup_reduce").pf3_dup_reduce
+    fn.restype = ct.c_int
+    fn.argtypes = [ct.c_void_p, ct.c_longlong, ct.c_void_p, ct.c_int, ct.c_int,
+                   ct.c_void_p, ct.c_void_p]
+    rc = fn(kernels.ptr(grads), grads.shape[1], kernels.ptr(ids), n_gauss, max_dup,
+            kernels.ptr(out), kernels.stream_ptr(dev))
+    kernels.check("dup_reduce", rc)
+    kernels.LAUNCHES["dup_reduce"] += 1
+    return out
+
+
+def dup_reduce(grads, ids, n_gauss: int, max_dup: int):
+    """Kernel B4 for CUDA tensors, its plain version for CPU tensors."""
+    fn = dup_reduce_plain if grads.device.type == "cpu" else dup_reduce_cuda
+    return fn(grads, ids, n_gauss, max_dup)

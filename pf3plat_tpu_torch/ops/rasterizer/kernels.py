@@ -26,6 +26,8 @@ BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = {
     "compact_pairs": "compact_pairs.cu",
     "composite_fwd": "composite_fwd.cu",
+    "composite_bwd": "composite_bwd.cu",
+    "dup_reduce": "dup_reduce.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

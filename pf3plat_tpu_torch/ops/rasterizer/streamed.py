@@ -1,19 +1,23 @@
-"""Streamed rasterizer forward: pair sort + per-tile compositing (kernel B2).
+"""Streamed rasterizer: pair sort + per-tile compositing, forward (kernel
+B2) and backward (kernels B3, B4).
 
-Port of the forward half of `pf3plat_tpu/ops/rasterizer/streamed.py`
-(single device, no mesh). Gaussians expand into slot-major candidate
-pairs (compacted to a static budget by kernel B1 when the scene is large
-enough), ONE `torch.sort` on the int64 key `fused << 32 | pair id` puts
-them in the JAX order exactly ((fused, id) is unique), segment starts come
-from `torch.searchsorted`, and kernel B2 composites each 16x16 tile's
-segment from the sorted feature rows.
+Port of `pf3plat_tpu/ops/rasterizer/streamed.py` (single device, no mesh).
+Gaussians expand into slot-major candidate pairs (compacted to a static
+budget by kernel B1 when the scene is large enough), ONE `torch.sort` on
+the int64 key `fused << 32 | pair id` puts them in the JAX order exactly
+((fused, id) is unique), segment starts come from `torch.searchsorted`,
+and kernel B2 composites each 16x16 tile's segment from the sorted feature
+rows.
 
-Compositing dispatch: `composite_fwd_cuda` (the hand-written kernel,
-`csrc/composite_fwd.cu`, replacing `streamed.py:_streamed_fwd_kernel`) for
-CUDA tensors, `composite_fwd_plain` (the same function in plain PyTorch)
-for CPU tensors.
+`StreamedRasterize` is the `jax.custom_vjp` of the JAX package as a
+`torch.autograd.Function`: its backward replays the composite (kernel B3),
+unsorts the per-pair gradients with one sort on the pair ids, and sums them
+per gaussian (kernel B4 when compaction is on, a reshape-sum over
+`max_dup` when it is off).
 
-Forward only: the backward kernels (B3, B4) belong to the training slice.
+Dispatch: each kernel wrapper (`composite_fwd`, `composite_bwd`,
+`compact.dup_reduce`) launches the hand-written kernel for CUDA tensors
+and takes its plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from .compact import (
     N_FEAT,
     build_candidates,
     compact_candidates,
+    dup_reduce,
     pairs_budget,
 )
 from .types import RasterizeConfig, ScreenGaussians
@@ -141,6 +146,45 @@ def segment_rows(starts, n_cols: int, config: RasterizeConfig):
     )
 
 
+def running_sum(s: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum over the last axis, added left to right: the
+    order of the kernels' running sums (B2's log-transmittance, B3's
+    suffix), so the plain versions round as the kernels do. (A parallel
+    cumsum differs by up to ~3e-5 in T over a full 1,024-pair segment.)"""
+    acc = torch.zeros_like(s[..., 0])
+    out = []
+    for j in range(s.shape[-1]):
+        acc = acc + s[..., j]
+        out.append(acc)
+    return torch.stack(out, dim=-1)
+
+
+def _pixel_centres(tile_ids, tiles_x: int, ts: int):
+    """Per tile row, its pixels' centres -> (px, py), each (rows, ts*ts)."""
+    local = torch.arange(ts * ts, device=tile_ids.device)
+    tx = (tile_ids % tiles_x).to(torch.int64)
+    ty = torch.div(tile_ids, tiles_x, rounding_mode="floor").to(torch.int64)
+    px = (tx[:, None] * ts + local[None] % ts).to(torch.float32) + 0.5
+    py = (ty[:, None] * ts + local[None] // ts).to(torch.float32) + 0.5
+    return px, py
+
+
+def _chunk_alpha(data, px, py, seg, config: RasterizeConfig):
+    """One chunk's features (9, rows, ck) at every pixel -> alpha
+    (rows, p, ck), zeroed outside the segment `seg` (rows, ck), and the
+    residuals dx, dy, gexp, unclamped (`streamed.py:_chunk_alpha_cols`)."""
+    dx = px[:, :, None] - data[0][:, None, :]
+    dy = py[:, :, None] - data[1][:, None, :]
+    ca, cb, cc, op = (data[k][:, None, :] for k in (2, 3, 4, 5))
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    gexp = torch.exp(torch.clamp(power, max=0.0))
+    alpha_raw = op * gexp
+    alpha = torch.clamp(alpha_raw, max=config.alpha_clamp)
+    keep = (power <= 0.0) & (alpha >= config.alpha_min) & seg[:, None, :]
+    alpha = torch.where(keep, alpha, torch.zeros((), device=alpha.device))
+    return alpha, dx, dy, gexp, keep & (alpha_raw < config.alpha_clamp)
+
+
 def composite_fwd_plain(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
                         channels, config: RasterizeConfig):
     """Plain PyTorch version of kernel B2 -> (img (rows, ch, p),
@@ -151,11 +195,7 @@ def composite_fwd_plain(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
     ck = config.chunk
     n_chunks = config.tile_capacity // ck + 1
     rows = base.shape[0]
-    local = torch.arange(p, device=dev)
-    tx = (tile_ids % tiles_x).to(torch.int64)
-    ty = torch.div(tile_ids, tiles_x, rounding_mode="floor").to(torch.int64)
-    px = (tx[:, None] * ts + local[None] % ts).to(torch.float32) + 0.5  # (rows, p)
-    py = (ty[:, None] * ts + local[None] // ts).to(torch.float32) + 0.5
+    px, py = _pixel_centres(tile_ids, tiles_x, ts)
     end = (off + counts).to(torch.int64)
     lane = torch.arange(ck, device=dev)
 
@@ -169,16 +209,8 @@ def composite_fwd_plain(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
         data = featP[:, cols]  # (9, rows, ck)
         j = i * ck + lane[None]
         seg = (j >= off[:, None]) & (j < end[:, None])  # (rows, ck)
-        dx = px[:, :, None] - data[0][:, None, :]  # (rows, p, ck)
-        dy = py[:, :, None] - data[1][:, None, :]
-        ca, cb, cc, op = (data[k][:, None, :] for k in (2, 3, 4, 5))
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        alpha = torch.clamp(op * torch.exp(torch.clamp(power, max=0.0)), max=config.alpha_clamp)
-        keep = (power <= 0.0) & (alpha >= config.alpha_min) & seg[:, None, :]
-        alpha = torch.where(keep, alpha, torch.zeros_like(alpha))
-        s = torch.log1p(-alpha)
-        incl = torch.cumsum(s, dim=-1)
-        t_after = tcar[:, :, None] * torch.exp(incl)
+        alpha = _chunk_alpha(data, px, py, seg, config)[0]  # (rows, p, ck)
+        t_after = tcar[:, :, None] * torch.exp(running_sum(torch.log1p(-alpha)))
         alive = (t_after >= config.transmittance_min) & seg[:, None, :]
         one_m = torch.clamp(1.0 - alpha, min=1.0 - config.alpha_clamp)
         wgt = torch.where(alive, (t_after / one_m) * alpha, torch.zeros_like(alpha))
@@ -248,25 +280,158 @@ def composite_fwd(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
     return fn(featP, base, off, counts, tile_ids, bg_rows, tiles_x, channels, config)
 
 
+def n_processed(tchk):
+    """Chunks the forward processed per tile row: chunk i was processed iff
+    its checkpoint is above 0 (written before compositing, and T stays
+    positive), so the count is monotone in i (`streamed.py:1196-1203`)."""
+    return (tchk.amax(dim=2) > 0.0).sum(dim=1).to(torch.int32)
+
+
+def composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                        g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Plain PyTorch version of kernel B3 (`_bwd_chunk_grads` per chunk,
+    walked in reverse) -> (dP (9, n) f32 per sorted pair row, zero outside
+    every tile segment; dbg (rows, ch))."""
+    dev = featP.device
+    ts = config.tile_size
+    ck = config.chunk
+    n_chunks = config.tile_capacity // ck + 1
+    px, py = _pixel_centres(tile_ids, tiles_x, ts)
+    end = (off + counts).to(torch.int64)
+    lane = torch.arange(ck, device=dev)
+    zero = torch.zeros((), device=dev)
+
+    g = g_tiles  # (rows, ch, p)
+    gt = (bg_rows[:, :, None] * g).sum(dim=1)  # (rows, p)
+    dbg = (g * tfin).sum(dim=2)
+    tail = tfin[:, 0] * gt
+    dP = torch.zeros_like(featP)
+    for i in reversed(range(n_chunks)):
+        cols = base.to(torch.int64)[:, None] * ck + i * ck + lane[None]  # (rows, ck)
+        data = featP[:, cols]  # (9, rows, ck)
+        j = i * ck + lane[None]
+        seg = (j >= off[:, None]) & (j < end[:, None]) & (i < nproc)[:, None]
+        alpha, dx, dy, gexp, unclamped = _chunk_alpha(data, px, py, seg, config)
+        ca, cb, cc = (data[k][:, None, :] for k in (2, 3, 4))
+        t_after = tchk[:, i, :, None] * torch.exp(running_sum(torch.log1p(-alpha)))
+        alive = (t_after >= config.transmittance_min) & seg[:, None, :]
+        one_m = torch.clamp(1.0 - alpha, min=1.0 - config.alpha_clamp)
+        t_before = t_after / one_m
+        wgt = torch.where(alive, t_before * alpha, zero)
+        color = data[6 : 6 + channels].permute(1, 0, 2)  # (rows, ch, ck)
+        cg = torch.einsum("rcg,rcp->rpg", color, g)
+        m = wgt * cg
+        # strict suffix: sum of m over the chunk's later pairs
+        rev = torch.flip(running_sum(torch.flip(m, [-1])), [-1])
+        suffix = torch.cat([rev[..., 1:], torch.zeros_like(rev[..., :1])], dim=-1)
+        suffix = suffix + tail[:, :, None]
+        dalpha = torch.where(alive & unclamped, t_before * cg - suffix / one_m, zero)
+        dpow = alpha * dalpha
+        rows_d = [
+            ((ca * dx + cb * dy) * dpow).sum(dim=1),
+            ((cc * dy + cb * dx) * dpow).sum(dim=1),
+            (-0.5 * dx * dx * dpow).sum(dim=1),
+            (-dx * dy * dpow).sum(dim=1),
+            (-0.5 * dy * dy * dpow).sum(dim=1),
+            (gexp * dalpha).sum(dim=1),
+        ] + list(torch.einsum("rcp,rpg->crg", g, wgt))
+        rows_d += [torch.zeros_like(rows_d[0])] * (N_FEAT - len(rows_d))
+        # Values outside each tile's segment are exact zeros, so adding the
+        # overlapping windows leaves every row with its one owner's value.
+        dP.index_add_(1, cols.reshape(-1), torch.stack(rows_d).reshape(N_FEAT, -1))
+        tail = tail + m.sum(dim=-1)
+    return dP, dbg
+
+
+def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                       g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Kernel B3 on the card (`csrc/composite_bwd.cu`)."""
+    dev = featP.device
+    if dev.type != "cuda":
+        raise ValueError("composite_bwd_cuda needs CUDA tensors")
+    rows = base.shape[0]
+    ts = config.tile_size
+    p = ts * ts
+    ck = config.chunk
+    n_chunks = config.tile_capacity // ck + 1
+    if featP.dtype != torch.float32 or featP.dim() != 2 or featP.shape[0] != N_FEAT \
+            or not featP.is_contiguous():
+        raise ValueError("featP: want a contiguous (9, n) float32 tensor")
+    if featP.shape[1] < n_chunks * ck:
+        raise ValueError("featP is shorter than one tile window")
+    for name, t in (("base", base), ("off", off), ("counts", counts), ("tile_ids", tile_ids),
+                    ("nproc", nproc)):
+        if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (rows,) \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous ({rows},) int32 tensor on {dev}")
+    for name, t, shape in (("bg_rows", bg_rows, (rows, channels)), ("tfin", tfin, (rows, 1, p)),
+                           ("tchk", tchk, (rows, n_chunks, p)),
+                           ("g_tiles", g_tiles, (rows, channels, p))):
+        if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {shape} float32 tensor on {dev}")
+    smem = 4 * (N_FEAT * ck + ck * p + (p // 32) * ck * N_FEAT)
+    if not 1 <= channels <= 3 or p % 32 or p > 1024 or smem > 232448:
+        raise ValueError("composite_bwd supports 1-3 channels, tiles of a multiple of 32 "
+                         "pixels up to 1024, and chunk * pixels within shared memory")
+    dP = torch.zeros((N_FEAT, featP.shape[1]), dtype=torch.float32, device=dev)
+    dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
+    ct = kernels.ctypes
+    fn = kernels.load("composite_bwd").pf3_composite_bwd
+    fn.restype = ct.c_int
+    fn.argtypes = (
+        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 9 + [ct.c_int] * 6
+        + [ct.c_float] * 4 + [ct.c_void_p] * 3
+    )
+    rc = fn(
+        kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
+        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc), kernels.ptr(bg_rows),
+        kernels.ptr(tfin), kernels.ptr(tchk), kernels.ptr(g_tiles), rows, channels, tiles_x,
+        ts, ck, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+        config.transmittance_min, kernels.ptr(dP), kernels.ptr(dbg), kernels.stream_ptr(dev),
+    )
+    kernels.check("composite_bwd", rc)
+    kernels.LAUNCHES["composite_bwd"] += 1
+    return dP, dbg
+
+
+def composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                  g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Kernel B3 for CUDA tensors, its plain version for CPU tensors."""
+    fn = composite_bwd_plain if featP.device.type == "cpu" else composite_bwd_cuda
+    return fn(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
+              tiles_x, channels, config)
+
+
 def tiles_to_image(img_tiles, b, tiles_x, tiles_y, channels, ts):
     out = img_tiles.reshape(b, tiles_y, tiles_x, channels, ts, ts)
     return out.permute(0, 1, 4, 2, 5, 3).reshape(b, tiles_y * ts, tiles_x * ts, channels)
 
 
+def image_to_tiles(img, tiles_x, tiles_y, ts):
+    """(b, h, w, c) -> (b * tiles_y * tiles_x, c, ts * ts), zero-padded to
+    the tile grid (the inverse of `tiles_to_image`)."""
+    b, h, w, c = img.shape
+    pad = img.new_zeros((b, tiles_y * ts, tiles_x * ts, c))
+    pad[:, :h, :w] = img
+    out = pad.reshape(b, tiles_y, ts, tiles_x, ts, c).permute(0, 1, 3, 5, 2, 4)
+    return out.reshape(b * tiles_y * tiles_x, c, ts * ts).contiguous()
+
+
 def prepare_streamed(screen: ScreenGaussians, image_shape, background, config):
     """Everything before kernel B2: pair sort and per-tile segment rows.
 
-    Returns the keyword arguments of `composite_fwd` plus `stats`
-    (compaction counts or None)."""
+    Returns the keyword arguments of `composite_fwd` plus `extra`
+    (tiles_y, the sorted pair ids, and the compaction counts or None)."""
     b, n = screen.depth.shape
     channels = screen.color.shape[-1]
     stats = None
     if use_compaction(config, b, n):
-        featP, _, starts, tiles_x, tiles_y, stats = pair_sort_compacted(
+        featP, ids_sorted, starts, tiles_x, tiles_y, stats = pair_sort_compacted(
             screen, image_shape, config
         )
     else:
-        featP, _, starts, tiles_x, tiles_y = pair_sort(screen, image_shape, config)
+        featP, ids_sorted, starts, tiles_x, tiles_y = pair_sort(screen, image_shape, config)
     num_tiles = tiles_x * tiles_y
     base, off, counts = segment_rows(starts, featP.shape[1], config)
     dev = featP.device
@@ -277,7 +442,59 @@ def prepare_streamed(screen: ScreenGaussians, image_shape, background, config):
     return dict(
         featP=featP, base=base, off=off, counts=counts, tile_ids=tile_ids,
         bg_rows=bg_rows, tiles_x=tiles_x, channels=channels, config=config,
-    ), dict(tiles_y=tiles_y, stats=stats)
+    ), dict(tiles_y=tiles_y, ids_sorted=ids_sorted, stats=stats)
+
+
+def unsort_reduce(dP, ids_sorted, b: int, n: int, compacted: bool, config: RasterizeConfig):
+    """Per-pair gradients in sorted order -> per-gaussian sums (9, b * n).
+
+    One sort on the pair ids restores pair-id order (`streamed.py:
+    1234-1247`); the first len(ids_sorted) rows are the real pairs (pad rows
+    sort after them and carry zeros). Compacted: kernel B4 sums each
+    gaussian's surviving rows; expanded: every gaussian owns exactly
+    max_dup rows, summed by a reshape (`streamed.py:1248-1262`)."""
+    total = ids_sorted.numel()
+    ids_u, perm = torch.sort(ids_sorted)
+    grads = dP[:, :total][:, perm].contiguous()
+    if compacted:
+        return dup_reduce(grads, ids_u.contiguous(), b * n, config.max_dup)
+    return grads.view(N_FEAT, b * n, config.max_dup).sum(dim=-1)
+
+
+class StreamedRasterize(torch.autograd.Function):
+    """The streamed pipeline's render with its hand-written backward (the
+    JAX package's `custom_vjp`, `streamed.py:1094-1277`). Differentiable
+    inputs: xy, conic, opacity, color, background; depth, radius and valid
+    only steer binning and get no gradient."""
+
+    @staticmethod
+    def forward(ctx, xy, conic, opacity, color, background, depth, radius, valid,
+                image_shape, config):
+        h, w = image_shape
+        b, n = depth.shape
+        screen = ScreenGaussians(xy=xy, depth=depth, conic=conic, radius=radius,
+                                 color=color, opacity=opacity, valid=valid)
+        args, extra = prepare_streamed(screen, image_shape, background, config)
+        img_tiles, tfin, tchk = composite_fwd(**args)
+        ctx.save_for_backward(args["featP"], extra["ids_sorted"], args["base"], args["off"],
+                              args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk)
+        ctx.meta = (b, n, image_shape, args["tiles_x"], extra["tiles_y"], args["channels"],
+                    config, use_compaction(config, b, n))
+        out = tiles_to_image(img_tiles, b, args["tiles_x"], extra["tiles_y"],
+                             args["channels"], config.tile_size)
+        return out[:, :h, :w]
+
+    @staticmethod
+    def backward(ctx, g_img):
+        featP, ids_sorted, base, off, counts, tile_ids, bg_rows, tfin, tchk = ctx.saved_tensors
+        b, n, _, tiles_x, tiles_y, channels, config, compacted = ctx.meta
+        g_tiles = image_to_tiles(g_img.to(torch.float32), tiles_x, tiles_y, config.tile_size)
+        dP, dbg = composite_bwd(featP, base, off, counts, tile_ids, n_processed(tchk), bg_rows,
+                                tfin, tchk, g_tiles, tiles_x, channels, config)
+        d = unsort_reduce(dP, ids_sorted, b, n, compacted, config).T.reshape(b, n, N_FEAT)
+        d_bg = dbg.reshape(b, tiles_x * tiles_y, channels).sum(dim=1)
+        return (d[..., 0:2], d[..., 2:5], d[..., 5], d[..., 6 : 6 + channels], d_bg,
+                None, None, None, None, None)
 
 
 def composite_streamed_batched(
@@ -286,13 +503,9 @@ def composite_streamed_batched(
     background: torch.Tensor,  # (b, c)
     config: RasterizeConfig,
 ) -> torch.Tensor:
-    """Streamed-pipeline rendering of a batch of cameras -> (b, h, w, c)."""
-    h, w = image_shape
-    b = screen.depth.shape[0]
-    args, extra = prepare_streamed(screen, image_shape, background, config)
-    img_tiles, _, _ = composite_fwd(**args)
-    out = tiles_to_image(
-        img_tiles, b, args["tiles_x"], extra["tiles_y"], args["channels"],
-        config.tile_size,
+    """Streamed-pipeline rendering of a batch of cameras -> (b, h, w, c),
+    differentiable in xy, conic, opacity, color and background."""
+    return StreamedRasterize.apply(
+        screen.xy, screen.conic, screen.opacity, screen.color, background,
+        screen.depth, screen.radius, screen.valid, tuple(image_shape), config,
     )
-    return out[:, :h, :w]

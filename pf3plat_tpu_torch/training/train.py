@@ -1,0 +1,171 @@
+"""Optimizer and train step; port of `pf3plat_tpu/training/train.py`
+(`OptimizerCfg`, `make_optimizer`, `TrainState`, `make_model_train_step`).
+
+The optimizer is written out as plain functions with optax's semantics,
+not with torch's library helpers, whose edges differ:
+
+  * schedule: `optax.cosine_onecycle_schedule(max_steps + 10, lr,
+    pct_start=max(0.01, 1.5 / total))` (div 25, final div 1e4). Its phase
+    ends are int(pct_start * T) and T; `torch.optim.lr_scheduler.OneCycleLR`
+    ends its phases one step earlier;
+  * `clip_by_global_norm`: g * (max_norm / |g|) when |g| >= max_norm
+    (`clip_grad_norm_` divides by |g| + 1e-6 instead);
+  * Adam (b1 0.9, b2 0.999, eps 1e-8, eps_root 0), the bias correction
+    counting from 1;
+  * `apply_if_finite(max_consecutive_errors=100)`: a non-finite gradient
+    gives a zero update and leaves the inner state (moments and the
+    schedule's count) alone; after more than 100 consecutive failures the
+    update is applied anyway. `TrainState.step` advances either way.
+
+Trainable parameters are the encoder's only; the frozen modules never get
+gradients.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from .losses import LossCfg, total_loss
+
+MAX_CONSECUTIVE_ERRORS = 100
+ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerCfg:
+    lr: float = 2e-4
+    max_steps: int = 300_001
+    cosine_lr: bool = True
+    warm_up_steps: int = 2000
+    grad_clip: float = 0.5
+
+
+def make_schedule(cfg: OptimizerCfg) -> Callable[[int], float]:
+    """The learning rate at optimizer count `count`: optax's schedules,
+    evaluated in float32 in optax's order of operations."""
+    f32 = np.float32
+    if not cfg.cosine_lr:
+        init, end, steps = cfg.lr / cfg.warm_up_steps, cfg.lr, cfg.warm_up_steps
+
+        def linear(count: int) -> float:
+            frac = f32(1) - f32(min(max(count, 0), steps)) / f32(steps)
+            return float(f32(init - end) * frac + f32(end))
+
+        return linear
+
+    total = cfg.max_steps + 10
+    # pct_start * total must cover >= 1 step (the JAX package's guard).
+    pct_start = max(0.01, 1.5 / total)
+    div, final_div = 25.0, 1e4
+    bounds = (0, int(pct_start * total), int(total))
+    values = np.cumprod([cfg.lr / div, div, 1.0 / (div * final_div)])
+
+    def onecycle(count: int) -> float:
+        if count >= bounds[2]:
+            return float(f32(values[2]))
+        k = 0 if count < bounds[1] else 1
+        pct = f32(count - bounds[k]) / f32(bounds[k + 1] - bounds[k])
+        start, end = values[k], values[k + 1]
+        cos = np.cos(f32(np.pi) * pct)
+        return float(f32(end) + f32((start - end) / 2.0) * (cos + f32(1)))
+
+    return onecycle
+
+
+class OptState(NamedTuple):
+    count: int                  # Adam's and the schedule's update count
+    mu: list[torch.Tensor]
+    nu: list[torch.Tensor]
+    notfinite_count: int        # consecutive non-finite gradients
+
+
+class TrainState(NamedTuple):
+    params: list[torch.Tensor]  # the encoder's parameters, updated in place
+    opt_state: OptState
+    step: int
+
+
+def global_norm(tensors) -> torch.Tensor:
+    return torch.sqrt(sum(torch.sum(t * t) for t in tensors))
+
+
+def init_opt_state(params) -> OptState:
+    return OptState(0, [torch.zeros_like(p) for p in params],
+                    [torch.zeros_like(p) for p in params], 0)
+
+
+def opt_update(cfg: OptimizerCfg, schedule, grads, state: OptState
+               ) -> tuple[list[torch.Tensor], OptState]:
+    """apply_if_finite(chain(clip_by_global_norm, adam(schedule))) ->
+    (updates to add to the parameters, new state)."""
+    finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
+    notfinite = 0 if finite else state.notfinite_count + 1
+    if not (finite or notfinite > MAX_CONSECUTIVE_ERRORS):
+        return [torch.zeros_like(g) for g in grads], state._replace(notfinite_count=notfinite)
+    g_norm = global_norm(grads)
+    if not bool(g_norm < cfg.grad_clip):
+        grads = [(g / g_norm) * cfg.grad_clip for g in grads]
+    count = state.count + 1
+    lr = schedule(state.count)
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
+    mu = [(1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.mu)]
+    nu = [(1 - ADAM_B2) * (g * g) + ADAM_B2 * v for g, v in zip(grads, state.nu)]
+    updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2 + ADAM_EPS_ROOT) + ADAM_EPS))
+               for m, v in zip(mu, nu)]
+    return updates, OptState(count, mu, nu, notfinite)
+
+
+def init_train_state(model) -> TrainState:
+    params = list(model.encoder.parameters())
+    return TrainState(params, init_opt_state(params), 0)
+
+
+def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg):
+    """Full-pipeline train step (`train.py:159-220`): frozen perception
+    without gradients, encoder, render, losses, backward, update.
+
+    `train_step(state, batch, ransac_noise=None, generator=None,
+    timer=None) -> (state, aux)`. The batch holds `context` (image
+    (b, v, h, w, 3), intrinsics, near, far) and `target` (image): with the
+    union trick the target stack is the context stack. `aux` holds the loss
+    parts, `psnr`, `loss` and `grad_norm` (the global norm before
+    clipping). `timer`, if given, is called with "perceive", "encoder",
+    "decoder", "loss", "backward", "optimizer" as each stage ends."""
+    schedule = make_schedule(opt_cfg)
+
+    def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None):
+        ctx = batch["context"]
+        target = batch["target"]["image"].to(model.device, torch.float32)
+        for p in state.params:
+            p.grad = None
+        enc, out = model(ctx["image"], ctx["intrinsics"], ctx["near"], ctx["far"], state.step,
+                         ransac_noise=ransac_noise, generator=generator, timer=timer)
+        lpips_fn = model.lpips_apply if loss_cfg.lpips_weight > 0.0 else None
+        intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
+        loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
+                                 lpips_fn=lpips_fn)
+        aux = {k: v.detach() for k, v in parts.items()}
+        aux["psnr"] = -10.0 * torch.log10(
+            torch.clamp(torch.mean((out.color.detach() - target) ** 2), min=1e-12))
+        if timer:
+            timer("loss")
+        loss.backward()
+        if timer:
+            timer("backward")
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        updates, opt_state = opt_update(opt_cfg, schedule, grads, state.opt_state)
+        with torch.no_grad():
+            for p, u in zip(state.params, updates):
+                p.add_(u)
+        aux["loss"] = loss.detach()
+        aux["grad_norm"] = global_norm(grads)
+        if timer:
+            timer("optimizer")
+        return TrainState(state.params, opt_state, state.step + 1), aux
+
+    return train_step

@@ -3,12 +3,14 @@
 `load_jax_params(model, trainable, frozen)` fills a `PF3plat` from the JAX
 package's `PF3platParams` trees given as nested dicts of numpy arrays:
 `trainable` = the encoder's `{"params": ...}`, `frozen` =
-`{"unidepth": {"params": ...}, "superpoint": {...}, "lightglue": {...}}`.
+`{"unidepth": {"params": ...}, "superpoint": {...}, "lightglue": {...},
+"lpips": {...}}`.
 
 Conventions: Dense kernel (in, out) -> Linear weight (out, in); Conv kernel
 (kh, kw, in, out) -> (out, in, kh, kw); LayerNorm/GroupNorm `scale` ->
 `weight`. The encoder's modules carry the Flax names, so its map is the
-identity up to the LightGlue-style block names. The backbones carry the
+identity up to the LightGlue-style block names, and LPIPS carries the Flax
+names as they are. The other backbones carry the
 released torch state-dict names; their maps are the inverse of the JAX
 package's `weight_convert.convert_superpoint` / `convert_lightglue` /
 `convert_unidepth`, written out here as rename rules.
@@ -87,27 +89,35 @@ def flatten(tree, prefix: str = "") -> dict[str, np.ndarray]:
     return out
 
 
+def jax_leaf(flat: dict[str, np.ndarray], name: str, rules, what: str
+             ) -> tuple[str, np.ndarray]:
+    """The Flax key of port parameter `name` and its value in the port's
+    layout."""
+    path = name
+    for pat, rep in rules:
+        path = re.sub(pat, rep, path)
+    base, _, leaf = path.rpartition(".")
+    cands = {"weight": ("kernel", "scale"), "bias": ("bias",)}.get(leaf, (leaf,))
+    for cand in cands:
+        key = f"{base}.{cand}" if base else cand
+        if key in flat:
+            break
+    else:
+        raise KeyError(f"{what}: no JAX parameter for {name} (looked for {base}.{cands})")
+    arr = flat[key]
+    if cand == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
+    return key, arr
+
+
 def load_flat(module: nn.Module, flat: dict[str, np.ndarray], rules, what: str) -> None:
     """Load `flat` (Flax names) into `module` through rename `rules`."""
     state = module.state_dict()
     used = set()
     new = {}
     for name, cur in state.items():
-        path = name
-        for pat, rep in rules:
-            path = re.sub(pat, rep, path)
-        base, _, leaf = path.rpartition(".")
-        cands = {"weight": ("kernel", "scale"), "bias": ("bias",)}.get(leaf, (leaf,))
-        for cand in cands:
-            key = f"{base}.{cand}" if base else cand
-            if key in flat:
-                break
-        else:
-            raise KeyError(f"{what}: no JAX parameter for {name} (looked for {base}.{cands})")
-        arr = flat[key]
+        key, arr = jax_leaf(flat, name, rules, what)
         used.add(key)
-        if cand == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
         value = torch.tensor(np.array(arr), dtype=cur.dtype)
         if tuple(value.shape) != tuple(cur.shape):
             raise ValueError(f"{what}: {name} wants {tuple(cur.shape)}, "
@@ -126,3 +136,4 @@ def load_jax_params(model, trainable: dict, frozen: dict) -> None:
     load_flat(model.superpoint, flatten(frozen["superpoint"]["params"]), [], "superpoint")
     load_flat(model.lightglue, flatten(frozen["lightglue"]["params"]), LIGHTGLUE_RULES,
               "lightglue")
+    load_flat(model.lpips, flatten(frozen["lpips"]["params"]), [], "lpips")

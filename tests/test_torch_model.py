@@ -108,7 +108,8 @@ def pair():
                               jnp.asarray(intr), jnp.asarray(near), jnp.asarray(far))
     tm = PF3plat(tcfg, device="cpu")
     to_np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
-    frozen = {k: to_np(params.frozen[k]) for k in ("unidepth", "superpoint", "lightglue")}
+    frozen = {k: to_np(params.frozen[k])
+              for k in ("unidepth", "superpoint", "lightglue", "lpips")}
     load_jax_params(tm, to_np(params.trainable), frozen)
     return jm, params, tm, (images, intr, near, far)
 
@@ -124,7 +125,8 @@ def forward(pair):
     m = jcorr.kpts0.shape[2]
     noise = jax_ransac_noise(rng, B, V * (V - 1) // 2, ENC["ransac_samples"], m)
     tfrozen, tcorr = tm.perceive(t(images), t(intr))
-    tenc, tout = tm(t(images), t(intr), t(near), t(far), 0, ransac_noise=t(noise))
+    with torch.no_grad():
+        tenc, tout = tm(t(images), t(intr), t(near), t(far), 0, ransac_noise=t(noise))
     return dict(jfrozen=jfrozen, jcorr=jcorr, jenc=jenc, jout=jout,
                 tfrozen=tfrozen, tcorr=tcorr, tenc=tenc, tout=tout)
 
@@ -139,7 +141,8 @@ class TestWeights:
         n_jax = sum(np.size(x) for x in jax.tree_util.tree_leaves(params.trainable))
         n_port = sum(p.numel() for p in tm.encoder.parameters())
         assert n_jax == n_port
-        for k, mod in (("superpoint", tm.superpoint), ("unidepth", tm.unidepth)):
+        for k, mod in (("superpoint", tm.superpoint), ("unidepth", tm.unidepth),
+                       ("lpips", tm.lpips)):
             n_jax = sum(np.size(x) for x in jax.tree_util.tree_leaves(params.frozen[k]))
             assert n_jax == sum(p.numel() for p in mod.parameters()), k
 

@@ -6,7 +6,11 @@ EWA projection, tile bounds / tight cull / depth key, kernel B1's plain
 version (bit-exact against JAX `compact_pairs`, fitting and overflowing),
 kernel B2's plain version (against the JAX streamed forward kernel in
 interpret mode: image, final T and per-chunk T checkpoints), the
-saturated-tile chunk-reset semantics, and `render` end to end.
+saturated-tile chunk-reset semantics, and `render` end to end; then the
+backward: `render` gradients through the port's autograd Function (kernel
+B3's and B4's plain versions) against the JAX streamed custom_vjp, B3's
+plain version against autograd of B2's plain version, and B4's plain
+version against JAX `banded_dup_reduce`.
 """
 
 from __future__ import annotations
@@ -305,3 +309,163 @@ class TestRender:
         scene = make_scene_np(np.random.default_rng(7), n=8, b=1)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             render(**{k: t(v) for k, v in scene.items()}, image_shape=(16, 16))
+
+
+def _render_grads_jax(scene, shape, jcfg, tgt):
+    keys = ("means", "covariances", "sh", "opacities", "background")
+
+    def loss(*xs):
+        d = {k: jnp.asarray(v) for k, v in scene.items()}
+        d.update(zip(keys, xs))
+        img = j_render(**d, image_shape=shape, impl="streamed", config=jcfg)
+        return jnp.mean((img - tgt) ** 2)
+
+    grads = jax.jit(jax.grad(loss, argnums=tuple(range(len(keys)))))(
+        *(jnp.asarray(scene[k]) for k in keys))
+    return dict(zip(keys, (np.asarray(g) for g in grads)))
+
+
+def _render_grads_port(scene, shape, tcfg, tgt):
+    keys = ("means", "covariances", "sh", "opacities", "background")
+    ts = {k: t(v) for k, v in scene.items()}
+    for k in keys:
+        ts[k].requires_grad_(True)
+    img = render(**ts, image_shape=shape, impl="streamed", config=tcfg, device="cpu")
+    ((img - t(tgt)) ** 2).mean().backward()
+    return {k: n(ts[k].grad) for k in keys}
+
+
+class TestStreamedBackward:
+    """Port-order steps 1-3 of the training slice."""
+
+    @pytest.mark.parametrize(
+        "kw,nn,spread",
+        [
+            ({}, 150, 1.0),
+            (dict(pairs_budget_factor=0.6, compact_min_pairs=0), 150, 1.0),
+            (dict(pairs_budget_factor=0.05, compact_min_pairs=0, compact_window=512), 400, 1.0),
+            (dict(tile_capacity=128), 400, 0.3),
+        ],
+        ids=["expanded", "compacted", "budget-overflows", "over-capacity"],
+    )
+    def test_render_grads_match_jax(self, kw, nn, spread):
+        """Gradients of mean((img - tgt)^2) w.r.t. means, covariances, SH,
+        opacities and background, at the JAX suite's gradient tolerance
+        (tests/test_streamed.py:43-68)."""
+        shape = (32, 48)
+        tcfg, jcfg = _cfg(**kw)
+        rng = np.random.default_rng(6)
+        scene = make_scene_np(rng, n=nn, b=2, spread=spread)
+        scene["near"] = np.array([0.5, 2.0], np.float32)
+        scene["background"] = rng.uniform(0, 1, (2, 3)).astype(np.float32)
+        tgt = rng.uniform(0, 1, (2, *shape, 3)).astype(np.float32)
+        if "compact_window" in kw:  # the budget really overflows
+            tscr, _ = _screens(scene, shape, tcfg, jcfg)
+            tc = tcompact.compact_pairs(tscr, shape, tcfg)
+            assert int(tc["written"]) < int(tc["total"])
+        if "tile_capacity" in kw:  # some tile's segment exceeds the capacity
+            tscr, _ = _screens(scene, shape, tcfg, jcfg)
+            args, _ = tstreamed.prepare_streamed(tscr, shape, t(scene["background"]), tcfg)
+            assert int(args["counts"].max()) == 128
+        ref = _render_grads_jax(scene, shape, jcfg, tgt)
+        got = _render_grads_port(scene, shape, tcfg, tgt)
+        for k in ref:
+            assert np.abs(ref[k]).max() > 0, k
+            np.testing.assert_allclose(got[k], ref[k], rtol=1e-4, atol=1e-7, err_msg=k)
+
+    def test_saturated_tile_grads_chunk_reset(self):
+        """TestCompositeB2's saturated tile, differentiated: chunk 0's pairs
+        after the failing pair 127 get no gradient, chunk 1 starts from its
+        own checkpoint, and the gradients of mean((img - tgt)^2) w.r.t. the
+        screen-space inputs match the JAX streamed custom_vjp."""
+        from pf3plat_tpu.ops.rasterizer.types import ScreenGaussians as JScreen
+        from pf3plat_tpu_torch.ops.rasterizer.types import ScreenGaussians
+
+        shape = (16, 16)
+        tcfg, jcfg = _cfg()
+        nn = 256
+        op = np.full(nn, 0.04, np.float32)
+        op[127] = 0.995
+        op[128:] = 0.3
+        rng = np.random.default_rng(9)
+        fields = dict(
+            xy=np.full((1, nn, 2), 8.0, np.float32),
+            depth=np.linspace(3.0, 6.0, nn, dtype=np.float32)[None],
+            conic=np.tile(np.array([1e-4, 0.0, 1e-4], np.float32), (1, nn, 1)),
+            radius=np.full((1, nn), 8.0, np.float32),
+            color=rng.uniform(0, 0.2, (1, nn, 3)).astype(np.float32),
+            opacity=op[None],
+            valid=np.ones((1, nn), bool),
+        )
+        bg = np.ones((1, 3), np.float32)
+        tgt = rng.uniform(0, 1, (1, 16, 16, 3)).astype(np.float32)
+        diff = ("xy", "conic", "opacity", "color")
+
+        def jloss(xy, conic, opacity, color, bgv):
+            scr = JScreen(**{**{k: jnp.asarray(v) for k, v in fields.items()},
+                             "xy": xy, "conic": conic, "opacity": opacity, "color": color})
+            img = jstreamed.composite_streamed_batched(scr, shape, bgv, jcfg)
+            return jnp.mean((img - tgt) ** 2)
+
+        ref = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(
+            *(jnp.asarray(fields[k]) for k in diff), jnp.asarray(bg))
+        ts = {k: t(v) for k, v in fields.items()}
+        tb = t(bg).requires_grad_(True)
+        for k in diff:
+            ts[k].requires_grad_(True)
+        img = tstreamed.composite_streamed_batched(ScreenGaussians(**ts), shape, tb, tcfg)
+        ((img - t(tgt)) ** 2).mean().backward()
+        got = [n(ts[k].grad) for k in diff] + [n(tb.grad)]
+        for name, a, b in zip(diff + ("background",), got, ref):
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-4, atol=1e-7, err_msg=name)
+        # the failing pair 127 is dead at every pixel and gets no gradient;
+        # chunk 1's pairs, composited after the reset, do
+        d_col = got[3][0]
+        assert np.abs(d_col[127]).max() == 0.0
+        assert np.abs(d_col[128:]).max() > 0.0
+
+    def test_b3_plain_vs_autograd_of_b2_plain(self):
+        """An independent check of the hand-derived backward: on a scene
+        where no pixel saturates, B3's plain version equals autograd through
+        B2's plain version (pair features and background)."""
+        shape = (32, 48)
+        tcfg, jcfg = _cfg()
+        scene = make_scene_np(np.random.default_rng(10), n=60, b=2)
+        tscr, _ = _screens(scene, shape, tcfg, jcfg)
+        args, _ = tstreamed.prepare_streamed(
+            tscr, shape, t(np.full((2, 3), 0.3, np.float32)), tcfg)
+        rows = args["base"].shape[0]
+        g_tiles = t(np.random.default_rng(11).standard_normal((rows, 3, 256)).astype(np.float32))
+        featP = args["featP"].clone().requires_grad_(True)
+        bg_rows = args["bg_rows"].clone().requires_grad_(True)
+        img, tfin, tchk = tstreamed.composite_fwd_plain(
+            **{**args, "featP": featP, "bg_rows": bg_rows})
+        assert float(tfin.detach().min()) > 1e-3  # unsaturated
+        (img * g_tiles).sum().backward()
+        dP, dbg = tstreamed.composite_bwd_plain(
+            args["featP"], args["base"], args["off"], args["counts"], args["tile_ids"],
+            tstreamed.n_processed(tchk.detach()), args["bg_rows"], tfin.detach(),
+            tchk.detach(), g_tiles, args["tiles_x"], 3, tcfg)
+        assert np.abs(n(dP)).max() > 0
+        np.testing.assert_allclose(n(dP), n(featP.grad), rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(n(dbg), n(bg_rows.grad), rtol=1e-5, atol=1e-6)
+
+    def test_b4_plain_bit_exact_vs_jax_banded_reduce(self):
+        """The JAX suite's banded-reduce inputs (tests/test_compact.py:136):
+        every gaussian owns 0..max_dup rows in ascending-id order, INT32_MAX
+        pads last. The sums are bit-exact."""
+        rng = np.random.default_rng(23)
+        n_gauss, max_dup, budget = 700, 4, 1536
+        cnt = rng.integers(0, max_dup + 1, n_gauss)
+        rows = int(cnt.sum())
+        ids = np.concatenate([g * max_dup + np.arange(c) for g, c in enumerate(cnt)])
+        ids = np.concatenate([ids, np.full(budget - rows, 2**31 - 1)]).astype(np.int32)
+        grads = np.zeros((16, budget), np.float32)
+        grads[1:10, :rows] = rng.standard_normal((9, rows)).astype(np.float32)
+        grads[0] = np.asarray(jax.lax.bitcast_convert_type(jnp.asarray(ids), jnp.float32))
+        ref = jax.jit(lambda g, i: jcompact.banded_dup_reduce(g, i, n_gauss, max_dup, g1=128))(
+            jnp.asarray(grads), jnp.asarray(ids))
+        got = tcompact.dup_reduce_plain(t(grads[1:10]), t(ids), n_gauss, max_dup)
+        assert got.shape == (9, n_gauss)
+        np.testing.assert_array_equal(n(got).view(np.int32),
+                                      np.asarray(ref)[1:10].view(np.int32))
