@@ -8,33 +8,42 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. device  - GPU name and power limit (nvidia-smi), build of the four
+  1. device  - GPU name and power limit (nvidia-smi), build of the six
                kernel libraries;
-  2. b1..b4_bench - the hand-written kernels (compact_pairs = B1,
-               composite_fwd = B2, composite_bwd = B3, dup_reduce = B4)
-               against their plain PyTorch versions on bench.py's scene
-               (2 views, 131,072 gaussians; a fixed upstream gradient from
-               numpy seed 1 for B3 and B4);
+  2. b1..b7_bench - the hand-written kernels (compact_pairs = B1,
+               composite_fwd = B2, composite_bwd = B3, dup_reduce = B4,
+               table_fwd = B6, table_bwd = B7) against their plain PyTorch
+               versions on bench.py's scene (2 views, 131,072 gaussians;
+               fixed upstream gradients from numpy seeds 1 and 2);
   3. render_fwd_bwd - the bench scene through `render`, forward and
-               backward with autograd: ms and Mrays/s (bench.py's
-               definition), and the rasterizer's gradients against the same
-               screen-space gaussians rendered on the CPU (plain versions);
+               backward with autograd, once per kernel backend (`streamed`,
+               `pallas`): ms and Mrays/s (bench.py's definition), and the
+               rasterizer's gradients against the same screen-space
+               gaussians rendered on the CPU (plain versions);
   4. serve   - the full-width RE10K serving request (b=1, v=5, 256x256,
                ViT-L UniDepth, 1024 keypoints, 9 LightGlue layers, 128 depth
                candidates, SH degree 4, production rasterizer config), random
                weights from a seed, under torch.no_grad(): a warm-up, then 3
                timed requests with the launch counters zeroed just before and
-               read just after; then b1/b2 on the served request's own
-               gaussians and a CPU reference render of one view;
-  5. train   - the training step of record (configs/re10k.yaml: the same
+               read just after; once with the `streamed` decoder (then b1/b2
+               on the served request's own gaussians and a CPU reference
+               render of one view) and once with `DecoderCfg(impl="pallas")`
+               (then b6 on the same gaussians; the two decoders' images are
+               compared and the difference printed);
+  5. depth   - `decode(..., depth_mode="depth")` on the served request's
+               gaussians through both kernel backends;
+  6. train   - the training step of record (configs/re10k.yaml: the same
                model, b=3, v=3 at 256x256 with the target stack = the
                context stack, LossCfg(), OptimizerCfg()), random weights from
-               a seed: a warm-up step, then 3 timed steps split into
+               a seed: a warm-up step, then 2 timed steps split into
                perceive / encoder / decoder / loss / backward / optimizer by
                CUDA events, with the launch counters zeroed just before and
-               read just after; then b1..b4 on the warm-up step's own render
-               inputs (9 cameras of 131,072 gaussians);
-  6. the kernels line, the nvidia-smi line, and the final
+               read just after; once per kernel backend, plus one `streamed`
+               step without budget truncation whose loss and gradient norm
+               the `pallas` step must match; then b1..b4, b6 and b7 on the
+               warm-up step's own render inputs (9 cameras of 131,072
+               gaussians);
+  7. the kernels line, the nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without CUDA, or outside a checkout of the
@@ -62,6 +71,21 @@ TOL_B3 = 1e-4
 # kernels' sources: B2 ~20 FP32 + 3 SFU; B3 repeats B2's forward sweep and
 # adds ~59 in its reverse sweep (see csrc/composite_bwd.cu).
 OPS_B2, OPS_B3 = 23, 82
+# B6 and B7 run the same per-evaluation arithmetic over dense tables
+# (csrc/table_fwd.cu, csrc/table_bwd.cu).
+OPS_B6, OPS_B7 = OPS_B2, OPS_B3
+# Streamed and dense-table images of one request differ where a pixel
+# saturates (their chunk boundaries differ): at most the T left at a reset,
+# < 1e-2, times a colour. Gated only when the pair budget did not overflow.
+TOL_BACKENDS = 2e-2
+# Loss and gradient norm of a training step, dense tables against the
+# streamed backend without budget truncation: the same pairs, composited in
+# chunks that start at other slots (saturated pixels differ slightly).
+TOL_TRAIN_BACKENDS = 1e-2
+# kernels each decoder backend must launch: forward (serving), and training
+FWD_KERNELS = {"streamed": ("compact_pairs", "composite_fwd"), "pallas": ("table_fwd",)}
+TRAIN_KERNELS = {"streamed": ("compact_pairs", "composite_fwd", "composite_bwd", "dup_reduce"),
+                 "pallas": ("table_fwd", "table_bwd")}
 # Published H100 peaks (NVIDIA data sheet; SXM part, PCIe part).
 PEAKS = {"sxm": dict(bw=3.35e12, fp32=67e12), "pcie": dict(bw=2.0e12, fp32=51e12)}
 
@@ -279,8 +303,118 @@ def check_backward(screen, image_shape, background, config, tag: str):
     return b3, b4
 
 
-def render_fwd_bwd(scene, config):
-    """The bench scene through `render`, forward and backward: ms and
+def table_inputs(screen, image_shape, background, config) -> dict:
+    """The dense-table backend up to its composite: binning + table gather
+    (the keyword arguments of `composite_table_fwd`)."""
+    from pf3plat_tpu_torch.ops.rasterizer import binning, pallas_impl
+
+    binned = binning.bin_gaussians_batched(screen, image_shape, config)
+    return pallas_impl.prepare_tables(screen, binned, background, config)
+
+
+def table_work(args) -> tuple[int, int]:
+    """(slots in walked chunks, (pixel, slot) evaluations) of this data."""
+    cfg = args["config"]
+    chunks = -(-args["counts"].long() // cfg.chunk)
+    walked = int(chunks.sum()) * cfg.chunk
+    return walked, walked * cfg.tile_size**2
+
+
+def check_b6(args, tag: str) -> dict:
+    """Kernel B6 vs its plain version on the same tables (image, final T
+    and checkpoints at B2's tolerance); times and bound."""
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
+
+    got = pallas_impl.composite_table_fwd_cuda(**args)
+    ref = pallas_impl.composite_table_fwd_plain(**args)
+    errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
+    if not all(math.isfinite(e) and e <= TOL_B2 for e in errs):
+        raise AssertionError(f"B6 {tag}: max abs err (img, tfin, tchk) {errs} > {TOL_B2}")
+    cfg, ch = args["config"], args["channels"]
+    rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
+    n_chunks = cfg.tile_capacity // cfg.chunk
+    slots, evaluations = table_work(args)
+    ms = cuda_ms(lambda: pallas_impl.composite_table_fwd_cuda(**args), 20)
+    plain_ms = cuda_ms(lambda: pallas_impl.composite_table_fwd_plain(**args), 3, warmup=1)
+    moved = slots * feat * 4 + rows * (8 + 4 * ch) + rows * p * 4 * (ch + 1 + n_chunks)
+    pk = peaks()
+    t_bytes, t_ops = moved / pk["bw"] * 1e3, evaluations * OPS_B6 / pk["fp32"] * 1e3
+    row = dict(phase=f"b6_{tag}", max_abs_err=max(errs), err_img=errs[0], err_tfin=errs[1],
+               err_tchk=errs[2], ms=ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
+               tile_rows=rows, slots_in_tables=int(args["counts"].sum()), walked_slots=slots,
+               evaluations=evaluations)
+    emit(row)
+    return row
+
+
+def check_b7(args, tag: str) -> dict:
+    """Kernel B7 vs its plain version on the same tables, B6's final T and
+    checkpoints, and fixed cotangents of the image (numpy seed 1) and of
+    the final T (numpy seed 2); per table column at B3's tolerance."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
+
+    cfg, ch = args["config"], args["channels"]
+    rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
+    n_chunks = cfg.tile_capacity // cfg.chunk
+    _, tfin, tchk = pallas_impl.composite_table_fwd_cuda(**args)
+    g_img = torch.as_tensor(
+        np.random.default_rng(1).standard_normal((rows, ch, p)).astype(np.float32), device="cuda")
+    g_tfin = torch.as_tensor(
+        np.random.default_rng(2).standard_normal((rows, 1, p)).astype(np.float32), device="cuda")
+    bwd = dict(table=args["table"], counts=args["counts"], tile_ids=args["tile_ids"],
+               bg_rows=args["bg_rows"], tfin=tfin, tchk=tchk, g_img=g_img, g_tfin=g_tfin,
+               tiles_x=args["tiles_x"], channels=ch, config=cfg)
+    got = pallas_impl.composite_table_bwd_cuda(**bwd)
+    ref = pallas_impl.composite_table_bwd_plain(**bwd)
+    errs = {}
+    for name, a, r in (("dtab", got[0], ref[0]), ("dbg", got[1], ref[1])):
+        for k in range(a.shape[-1]):
+            err = float((a[..., k] - r[..., k]).abs().max())
+            scale = float(r[..., k].abs().max())
+            if not (math.isfinite(err) and err <= TOL_B3 * scale):
+                raise AssertionError(f"B7 {tag}: {name}[{k}] max abs err {err} > "
+                                     f"{TOL_B3} * {scale}")
+            errs[f"{name}{k}"] = err
+    slots, evaluations = table_work(args)
+    ms = cuda_ms(lambda: pallas_impl.composite_table_bwd_cuda(**bwd), 10)
+    plain_ms = cuda_ms(lambda: pallas_impl.composite_table_bwd_plain(**bwd), 2, warmup=1)
+    moved = (slots * feat * 4 + rows * (8 + 4 * ch) + rows * p * 4 * (n_chunks + 2 + ch)
+             + rows * cfg.tile_capacity * feat * 4 + rows * ch * 4)
+    pk = peaks()
+    t_bytes, t_ops = moved / pk["bw"] * 1e3, evaluations * OPS_B7 / pk["fp32"] * 1e3
+    row = dict(phase=f"b7_{tag}", max_abs_err=max(errs.values()), errs=errs, tol_rel=TOL_B3,
+               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
+               walked_slots=slots, evaluations=evaluations,
+               smem_bytes=pallas_impl.table_bwd_smem_bytes(cfg, ch))
+    emit(row)
+    return row
+
+
+def check_tables(screen, image_shape, background, config, tag: str, backward: bool = True):
+    """B6 (and B7) on the dense tables of `screen` -> (B6 row, B7 row)."""
+    args = table_inputs(screen, image_shape, background, config)
+    return check_b6(args, tag), check_b7(args, tag) if backward else None
+
+
+def composite(screen, image_shape, background, config, impl):
+    """`render`'s compositing stage for a kernel backend."""
+    from pf3plat_tpu_torch.ops.rasterizer.binning import bin_gaussians_batched
+    from pf3plat_tpu_torch.ops.rasterizer.pallas_impl import composite_tiles_pallas_batched
+    from pf3plat_tpu_torch.ops.rasterizer.streamed import composite_streamed_batched
+
+    if impl == "streamed":
+        return composite_streamed_batched(screen, image_shape, background, config)
+    binned = bin_gaussians_batched(screen, image_shape, config)
+    return composite_tiles_pallas_batched(screen, binned, image_shape, background, config)
+
+
+def render_fwd_bwd(scene, config, impl: str):
+    """The bench scene through `render(impl=...)`, forward and backward: ms and
     Mrays/s (bench.py:245-246: 2 views x 256 x 256 rays over the fwd+bwd
     time); then the rasterizer's gradients on the card against the same
     screen-space gaussians rendered on the CPU through the plain versions,
@@ -291,7 +425,6 @@ def render_fwd_bwd(scene, config):
     import torch
 
     from pf3plat_tpu_torch.ops.rasterizer import render
-    from pf3plat_tpu_torch.ops.rasterizer.streamed import composite_streamed_batched
     from pf3plat_tpu_torch.ops.rasterizer.types import ScreenGaussians
 
     diff = ("means", "covariances", "sh", "opacities", "background")
@@ -303,14 +436,14 @@ def render_fwd_bwd(scene, config):
         for k in diff:
             leaves[k].grad = None
         img = render(**leaves, far=leaves["near"] * 100, image_shape=(256, 256),
-                     config=config, device="cuda")
+                     impl=impl, config=config, device="cuda")
         ((img - tgt) ** 2).mean().backward()
 
     ms = cuda_ms(step, 10)
     rays = 2 * 256 * 256
     grads_finite = all(bool(torch.isfinite(leaves[k].grad).all()) for k in diff)
     if not grads_finite:
-        raise AssertionError("render_fwd_bwd: non-finite gradients")
+        raise AssertionError(f"render_fwd_bwd {impl}: non-finite gradients")
 
     screen = project(scene, (256, 256), config)
     fields = ("xy", "conic", "opacity", "color")
@@ -321,33 +454,36 @@ def render_fwd_bwd(scene, config):
         bg = scene["background"].detach().to(dev).clone().requires_grad_(True)
         for f in fields:
             scr[f].requires_grad_(True)
-        img = composite_streamed_batched(ScreenGaussians(**scr), (256, 256), bg, config)
+        img = composite(ScreenGaussians(**scr), (256, 256), bg, config, impl)
         ((img - tgt.to(dev)) ** 2).mean().backward()
         outs.append([scr[f].grad.cpu() for f in fields] + [bg.grad.cpu()])
     for name, a, r in zip(fields + ("background",), *outs):
         err = float((a - r).abs().max())
         scale = float(r.abs().max())
         if not (math.isfinite(err) and err <= TOL_B3 * scale):
-            raise AssertionError(f"render_fwd_bwd: d{name} card vs CPU {err} > {TOL_B3} * {scale}")
+            raise AssertionError(f"render_fwd_bwd {impl}: d{name} card vs CPU {err} > "
+                                 f"{TOL_B3} * {scale}")
         errs[name] = err
-    emit(dict(phase="render_fwd_bwd", ms=ms, mrays_per_s=rays / (ms * 1e-3) / 1e6,
+    emit(dict(phase="render_fwd_bwd", impl=impl, ms=ms, mrays_per_s=rays / (ms * 1e-3) / 1e6,
               grad_err_vs_cpu=errs, tol_rel=TOL_B3))
 
 
-def model_config():
+def model_config(impl: str = "streamed", raster=None):
     from pf3plat_tpu_torch.models.backbones.unidepth import UniDepthCfg
-    from pf3plat_tpu_torch.models.decoder import DecoderCfg
+    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG, DecoderCfg
     from pf3plat_tpu_torch.models.encoder import EncoderCfg
     from pf3plat_tpu_torch.models.gaussian_adapter import GaussianAdapterCfg
     from pf3plat_tpu_torch.models.pf3plat import PF3platCfg
 
     # configs/re10k.yaml and re10k_test.yaml through main.build_model:
     # EncoderCfg() with 128 depth candidates and SH degree 4, DecoderCfg()
-    # (streamed, production rasterizer config), UniDepthCfg() = ViT-L/14.
+    # (production rasterizer config unless `raster` is given; `impl` picks
+    # the backend, "streamed" being the configs' own), UniDepthCfg() = ViT-L/14.
     return PF3platCfg(
         encoder=EncoderCfg(num_depth_candidates=128,
                            gaussian_adapter=GaussianAdapterCfg(sh_degree=4)),
-        decoder=DecoderCfg(), unidepth=UniDepthCfg(),
+        decoder=DecoderCfg(impl=impl, raster=raster or PRODUCTION_CONFIG),
+        unidepth=UniDepthCfg(),
         max_keypoints=1024, max_matches=512, lightglue_layers=9,
     )
 
@@ -365,7 +501,7 @@ def capture_decode():
                   depth_mode=None):
         captured.update(gaussians=type(gaussians)(*(x.detach() for x in gaussians)),
                         extrinsics=extrinsics.detach(), intrinsics=intrinsics.detach(),
-                        near=near.detach())
+                        near=near.detach(), far=far.detach())
         return decode(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape,
                       depth_mode=depth_mode)
 
@@ -376,7 +512,9 @@ def capture_decode():
         pf3plat_mod.decode = decode
 
 
-def serve(n_requests: int = 3):
+def serve(impl: str = "streamed", n_requests: int = 3):
+    """The serving request through `DecoderCfg(impl=impl)` -> (the decoder's
+    captured inputs, launches, the last request's image on the CPU)."""
     import numpy as np
     import torch
 
@@ -385,7 +523,7 @@ def serve(n_requests: int = 3):
 
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = PF3plat(model_config(), device="cuda")
+    model = PF3plat(model_config(impl), device="cuda")
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     b, v, h, w = 1, 5, 256, 256
@@ -440,21 +578,23 @@ def serve(n_requests: int = 3):
         if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"serve: {name} has shape {tuple(x.shape)} (want {shape}) "
                                  "or non-finite values")
-    launches = {k: launches[k] for k in ("compact_pairs", "composite_fwd")}
-    for name, count in launches.items():
-        if count < n_requests:
-            raise AssertionError(f"serve: kernel {name} launched {count} times in "
-                                 f"{n_requests} requests")
-    emit(dict(phase="serve", model_build_s=build_s, requests=per_request,
+    for name in FWD_KERNELS[impl]:
+        if launches[name] < n_requests:
+            raise AssertionError(f"serve {impl}: kernel {name} launched {launches[name]} times "
+                                 f"in {n_requests} requests")
+    emit(dict(phase="serve", impl=impl, model_build_s=build_s, requests=per_request,
               max_memory_allocated_bytes=peak, launches=launches,
               matches_valid=int(enc.correspondences.valid.sum()),
               color_mean=float(out.color.mean())))
-    return captured, launches
+    return captured, launches, out.color.cpu()
 
 
-def train(n_steps: int = 3):
-    """The training step of record on the card: a warm-up step (its render
-    inputs are kept for the kernel checks), then `n_steps` timed steps."""
+def train(impl: str = "streamed", n_steps: int = 2, raster=None):
+    """The training step of record on the card through
+    `DecoderCfg(impl=impl)` (production rasterizer config unless `raster` is
+    given): a warm-up step (its render inputs are kept for the kernel
+    checks), then `n_steps` timed steps -> (captured render inputs,
+    launches, the warm-up's and the steps' losses and gradient norms)."""
     import numpy as np
     import torch
 
@@ -465,7 +605,10 @@ def train(n_steps: int = 3):
         OptimizerCfg, init_train_state, make_model_train_step)
 
     torch.manual_seed(SEED)
-    model = PF3plat(model_config(), device="cuda")
+    model = PF3plat(model_config(impl, raster), device="cuda")
+    expected = TRAIN_KERNELS[impl]
+    if impl == "streamed" and raster is not None and raster.pairs_budget_factor == 0:
+        expected = ("composite_fwd", "composite_bwd")  # no compaction: no B1, no B4
     rng = np.random.default_rng(SEED)
     # re10k.yaml: b=3, 2 context views + 1 target spliced by the union
     # trick (the target stack is the context stack), 256x256
@@ -501,9 +644,9 @@ def train(n_steps: int = 3):
         state, aux = step_fn(state, batch, generator=gen, timer=timer)
         torch.cuda.synchronize()
         row = dict(total_ms=(time.perf_counter() - wall0) * 1e3)
-        missing = [k for k, n in kernels.LAUNCHES.items() if n == before[k]]
+        missing = [k for k in expected if kernels.LAUNCHES[k] == before[k]]
         if missing:
-            raise AssertionError(f"train: kernels {missing} not launched in a step")
+            raise AssertionError(f"train {impl}: kernels {missing} not launched in a step")
         prev = "start"
         for stage in stages:
             row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
@@ -515,12 +658,16 @@ def train(n_steps: int = 3):
     for row in per_step:
         bad = [k for k, x in row.items() if not math.isfinite(x)]
         if bad:
-            raise AssertionError(f"train: non-finite {bad}")
-    emit(dict(phase="train", batch=[b, v, h, w], steps=per_step, max_memory_allocated_bytes=peak,
+            raise AssertionError(f"train {impl}: non-finite {bad}")
+    emit(dict(phase="train", impl=impl, pairs_budget_factor=(raster or model.cfg.decoder.raster
+                                                             ).pairs_budget_factor,
+              batch=[b, v, h, w], steps=per_step, max_memory_allocated_bytes=peak,
               launches=launches, warmup_loss=float(warm_aux["loss"])))
+    trace = [dict(loss=float(warm_aux["loss"]), grad_norm=float(warm_aux["grad_norm"]))]
+    trace += [dict(loss=r["loss"], grad_norm=r["grad_norm"]) for r in per_step]
     del model, state, step_fn
     torch.cuda.empty_cache()
-    return captured, launches
+    return captured, launches, trace
 
 
 def render_scene(captured):
@@ -558,6 +705,84 @@ def reference_check(scene, config):
     emit(dict(phase="reference", view=0, max_abs_err=err, tol=TOL_B2))
 
 
+def depth_phase(captured, config):
+    """`decode(..., depth_mode="depth")` on the served request's gaussians
+    through both kernel backends: finite, non-negative depth; where the
+    accumulated opacity is above 0.5 (final T < 0.5) the opacity-normalised
+    depth lies inside the range of the gaussians' camera depths; the share
+    of those pixels inside [near, far] is reported."""
+    import torch
+
+    from pf3plat_tpu_torch.geometry.projection import se3_inverse
+    from pf3plat_tpu_torch.models.decoder import DecoderCfg, decode
+    from pf3plat_tpu_torch.ops.rasterizer import kernels, render
+
+    g = captured["gaussians"]
+    extr, intr = captured["extrinsics"], captured["intrinsics"]
+    near, far = captured["near"], captured["far"]
+    b, v = extr.shape[:2]
+    scene = render_scene(captured)
+    w2c = se3_inverse(scene["extrinsics"])
+    cam_z = torch.einsum("bij,bnj->bni", w2c[:, 2:3, :3], scene["means"])[..., 0] \
+        + w2c[:, 2, 3][:, None]
+    ones = torch.ones_like(scene["opacities"])[..., None, None]
+    report = {}
+    with torch.no_grad():
+        for impl in ("streamed", "pallas"):
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            out = decode(DecoderCfg(impl=impl, raster=config), g, extr, intr, near, far,
+                         (256, 256), depth_mode="depth")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: kernels.LAUNCHES[k] for k in FWD_KERNELS[impl]}
+            if any(n < 2 for n in launches.values()):  # one colour + one depth render
+                raise AssertionError(f"depth {impl}: launches {launches}")
+            depth = out.depth.reshape(b * v, 256, 256)
+            if tuple(out.depth.shape) != (b, v, 256, 256) or not bool(
+                    torch.isfinite(depth).all()) or float(depth.min()) < 0.0:
+                raise AssertionError(f"depth {impl}: wrong shape, non-finite or negative depth")
+            # accumulated opacity = 1 - final T: the same render with colour 1
+            acc = render(scene["extrinsics"], scene["intrinsics"], scene["near"],
+                         far.reshape(b * v), (256, 256), scene["background"][:, :1],
+                         scene["means"], scene["covariances"], ones, scene["opacities"],
+                         use_sh=False, impl=impl, config=config, device="cuda")[..., 0]
+            solid = acc > 0.5
+            if not bool(solid.any()):
+                raise AssertionError(f"depth {impl}: no pixel with final T < 0.5")
+            mean_z = depth / acc.clamp(min=1e-6)
+            zmin = torch.where(cam_z > 0, cam_z, torch.full_like(cam_z, float("inf"))).amin(dim=1)
+            zmax = cam_z.amax(dim=1)
+            lo, hi = zmin[:, None, None] * (1 - 1e-3), zmax[:, None, None] * (1 + 1e-3)
+            if not bool(((mean_z >= lo) & (mean_z <= hi))[solid].all()):
+                raise AssertionError(f"depth {impl}: normalised depth outside the gaussians' range")
+            nr, fr = near.reshape(-1)[:, None, None], far.reshape(-1)[:, None, None]
+            inside = ((mean_z >= nr) & (mean_z <= fr))[solid].float().mean()
+            report[impl] = dict(ms_first_call=ms, launches=launches, depth_mean=float(depth.mean()),
+                                depth_max=float(depth.max()), solid_share=float(solid.float().mean()),
+                                solid_inside_near_far=float(inside), depth=depth)
+    a, c = report["streamed"].pop("depth"), report["pallas"].pop("depth")
+    emit(dict(phase="depth", mode="depth", streamed=report["streamed"], pallas=report["pallas"],
+              backends_max_abs_diff=float((a - c).abs().max()),
+              backends_mean_abs_diff=float((a - c).abs().mean())))
+
+
+KERNEL_META = {
+    "compact_pairs": ("pf3plat_tpu_torch/csrc/compact_pairs.cu",
+                      "pf3plat_tpu/ops/rasterizer/compact.py:87"),
+    "composite_fwd": ("pf3plat_tpu_torch/csrc/composite_fwd.cu",
+                      "pf3plat_tpu/ops/rasterizer/streamed.py:365"),
+    "composite_bwd": ("pf3plat_tpu_torch/csrc/composite_bwd.cu",
+                      "pf3plat_tpu/ops/rasterizer/streamed.py:588"),
+    "dup_reduce": ("pf3plat_tpu_torch/csrc/dup_reduce.cu",
+                   "pf3plat_tpu/ops/rasterizer/compact.py:448"),
+    "table_fwd": ("pf3plat_tpu_torch/csrc/table_fwd.cu",
+                  "pf3plat_tpu/ops/rasterizer/pallas_impl.py:98"),
+    "table_bwd": ("pf3plat_tpu_torch/csrc/table_bwd.cu",
+                  "pf3plat_tpu/ops/rasterizer/pallas_impl.py:187"),
+}
+
+
 def main(argv) -> int:
     import torch
 
@@ -572,7 +797,7 @@ def main(argv) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -585,52 +810,81 @@ def main(argv) -> int:
               cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
 
     config = PRODUCTION_CONFIG
+    shape = (256, 256)
     scene = bench_scene("cuda")
-    screen = project(scene, (256, 256), config)
-    check_b1(screen, (256, 256), config, "bench")
-    check_b2(screen, (256, 256), scene["background"], config, "bench")
-    check_backward(screen, (256, 256), scene["background"], config, "bench")
+    screen = project(scene, shape, config)
+    check_b1(screen, shape, config, "bench")
+    check_b2(screen, shape, scene["background"], config, "bench")
+    check_backward(screen, shape, scene["background"], config, "bench")
+    check_tables(screen, shape, scene["background"], config, "bench")
     del screen
 
     if "--kernels" in argv:
         return 0
 
-    render_fwd_bwd(scene, config)
+    for impl in ("streamed", "pallas"):
+        render_fwd_bwd(scene, config, impl)
     del scene
 
-    captured, serve_launches = serve()
+    # Serving: the same request (same seeds, so the same gaussians) through
+    # both decoders.
+    captured, serve_launches, image = serve("streamed")
+    torch.cuda.empty_cache()
     scene = render_scene(captured)
-    screen = project(scene, (256, 256), config)
-    check_b1(screen, (256, 256), config, "serve")
-    check_b2(screen, (256, 256), scene["background"], config, "serve")
+    screen = project(scene, shape, config)
+    b1 = check_b1(screen, shape, config, "serve")
+    check_b2(screen, shape, scene["background"], config, "serve")
     reference_check(scene, config)
-    del captured, scene, screen
+    check_tables(screen, shape, scene["background"], config, "serve", backward=False)
+    del scene, screen
+    depth_phase(captured, config)
+    del captured
+    torch.cuda.empty_cache()
+    _, launches_p, image_p = serve("pallas")
+    serve_launches.update({k: launches_p[k] for k in FWD_KERNELS["pallas"]})
+    diff = (image - image_p).abs()
+    overflowed = b1["written"] < b1["total"]
+    emit(dict(phase="serve_backends", max_abs_diff=float(diff.max()),
+              mean_abs_diff=float(diff.mean()), budget_overflowed=overflowed,
+              gated=not overflowed, tol=TOL_BACKENDS))
+    if not overflowed and not float(diff.max()) <= TOL_BACKENDS:
+        raise AssertionError(f"serve: streamed vs pallas image differ by {float(diff.max())} "
+                             f"> {TOL_BACKENDS} though the pair budget did not overflow")
     torch.cuda.empty_cache()
 
-    captured, launches = train()
+    # Training: each backend's steps, then every kernel on the streamed
+    # warm-up step's own render inputs.
+    _, launches_p, trace_p = train("pallas")
+    captured, launches, _ = train("streamed")
+    launches.update({k: launches_p[k] for k in TRAIN_KERNELS["pallas"]})
+    # The tables hold every candidate, the production streamed budget drops
+    # some with random weights; with the exact expansion (budget factor 0)
+    # the streamed backend composites the same pairs as the tables, so the
+    # two training paths must agree step by step.
+    _, _, trace_s = train("streamed", 1, raster=RasterizeConfig())
+    worst = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_p, trace_s)
+                for k in ("loss", "grad_norm"))
+    emit(dict(phase="train_backends", pallas=trace_p[:2], streamed_exact=trace_s,
+              max_rel_diff=worst, tol=TOL_TRAIN_BACKENDS))
+    if not worst <= TOL_TRAIN_BACKENDS:
+        raise AssertionError(f"train: pallas vs streamed (exact expansion) loss / grad_norm "
+                             f"differ by {worst} > {TOL_TRAIN_BACKENDS}")
     scene = render_scene(captured)
-    screen = project(scene, (256, 256), config)
+    screen = project(scene, shape, config)
     rows = {
-        "compact_pairs": check_b1(screen, (256, 256), config, "train"),
-        "composite_fwd": check_b2(screen, (256, 256), scene["background"], config, "train"),
+        "compact_pairs": check_b1(screen, shape, config, "train"),
+        "composite_fwd": check_b2(screen, shape, scene["background"], config, "train"),
     }
     rows["composite_bwd"], rows["dup_reduce"] = check_backward(
-        screen, (256, 256), scene["background"], config, "train")
+        screen, shape, scene["background"], config, "train")
+    rows["table_fwd"], rows["table_bwd"] = check_tables(
+        screen, shape, scene["background"], config, "train")
 
-    meta = {
-        "compact_pairs": ("pf3plat_tpu_torch/csrc/compact_pairs.cu",
-                          "pf3plat_tpu/ops/rasterizer/compact.py:87"),
-        "composite_fwd": ("pf3plat_tpu_torch/csrc/composite_fwd.cu",
-                          "pf3plat_tpu/ops/rasterizer/streamed.py:365"),
-        "composite_bwd": ("pf3plat_tpu_torch/csrc/composite_bwd.cu",
-                          "pf3plat_tpu/ops/rasterizer/streamed.py:588"),
-        "dup_reduce": ("pf3plat_tpu_torch/csrc/dup_reduce.cu",
-                       "pf3plat_tpu/ops/rasterizer/compact.py:448"),
-    }
-    # launches: the training path's 3 timed steps (B1 and B2 also ran on the
-    # serving path: `launches_serve`); times at the training step's shapes
+    # launches: each backend's training path over its timed steps (the
+    # forward kernels also ran on the serving path: `launches_serve`);
+    # times at the training step's shapes
     line = []
-    for name, (src, replaces) in meta.items():
+    for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches[name], launches_serve=serve_launches.get(name, 0),

@@ -1,6 +1,7 @@
 """Rotation / rigid-transform utilities on torch tensors.
 
-Port of `pf3plat_tpu/geometry/transforms.py` (the serving path's part).
+Port of `pf3plat_tpu/geometry/transforms.py` (the serving path's part and
+the pose metrics' angles).
 """
 
 from __future__ import annotations
@@ -13,6 +14,12 @@ def geodesic_distance(r1: torch.Tensor, r2: torch.Tensor) -> torch.Tensor:
     m = torch.matmul(r1, r2.transpose(-1, -2))
     trace = m[..., 0, 0] + m[..., 1, 1] + m[..., 2, 2]
     return torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+
+
+def translation_angle(t1: torch.Tensor, t2: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    """Angle (radians) between translation directions (pose metrics)."""
+    cos = torch.sum(_normalize(t1, eps) * _normalize(t2, eps), dim=-1)
+    return torch.arccos(torch.clamp(cos, -1.0, 1.0))
 
 
 def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """Splatting decoder: Gaussians + target cameras -> rendered views.
 
-Port of `pf3plat_tpu/models/decoder.py` (color only; depth rendering is not
-ported in this slice).
+Port of `pf3plat_tpu/models/decoder.py`: flattens (batch, view) into the
+render batch, repeats each scene's gaussians per view, and renders color
+plus, when `depth_mode` is given, depth in that mode. `DecoderCfg.impl`
+selects the rasterizer backend ("streamed", "pallas", "tiled",
+"bruteforce").
 """
 
 from __future__ import annotations
@@ -10,7 +13,7 @@ import dataclasses
 
 import torch
 
-from ..ops.rasterizer import RasterizeConfig, render
+from ..ops.rasterizer import DepthRenderingMode, RasterizeConfig, render, render_depth
 from .types import DecoderOutput, Gaussians
 
 # The JAX package's production rasterizer config: streamed pipeline with
@@ -33,10 +36,8 @@ def decode(
     near: torch.Tensor,        # (b, v)
     far: torch.Tensor,         # (b, v)
     image_shape: tuple[int, int],
-    depth_mode=None,
+    depth_mode: DepthRenderingMode | None = None,
 ) -> DecoderOutput:
-    if depth_mode is not None:
-        raise NotImplementedError("depth rendering is not ported yet")
     b, v = extrinsics.shape[:2]
     dev = extrinsics.device
 
@@ -55,4 +56,11 @@ def decode(
         impl=cfg.impl, config=cfg.raster, device=dev,
     )
     h, w = image_shape
-    return DecoderOutput(color=color.reshape(b, v, h, w, 3), depth=None)
+    depth = None
+    if depth_mode is not None:
+        depth = render_depth(
+            flat(extrinsics), flat(intrinsics), flat(near), flat(far), image_shape,
+            rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
+            mode=depth_mode, impl=cfg.impl, config=cfg.raster, device=dev,
+        ).reshape(b, v, h, w)
+    return DecoderOutput(color=color.reshape(b, v, h, w, 3), depth=depth)

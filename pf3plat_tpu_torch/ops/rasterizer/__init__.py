@@ -1,4 +1,13 @@
-from .api import DEFAULT_CONFIG, render
+from .api import (
+    DEFAULT_CONFIG,
+    DepthRenderingMode,
+    render,
+    render_depth,
+    render_orthographic,
+)
 from .types import Camera, RasterizeConfig, ScreenGaussians
 
-__all__ = ["DEFAULT_CONFIG", "render", "Camera", "RasterizeConfig", "ScreenGaussians"]
+__all__ = [
+    "DEFAULT_CONFIG", "DepthRenderingMode", "render", "render_depth",
+    "render_orthographic", "Camera", "RasterizeConfig", "ScreenGaussians",
+]

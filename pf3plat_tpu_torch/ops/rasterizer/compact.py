@@ -27,7 +27,14 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .binning import INT32_MAX, depth_sort_key, tile_alpha_cull, tile_bounds
+from .binning import (
+    INT32_MAX,
+    depth_levels,
+    depth_sort_key,
+    fused_bits,
+    tile_alpha_cull,
+    tile_bounds,
+)
 from .types import RasterizeConfig, ScreenGaussians
 
 N_FEAT = 9  # x, y, ca, cb, cc, op, c0, c1, c2
@@ -46,23 +53,6 @@ def pairs_budget(config: RasterizeConfig, b: int, n: int) -> int:
 
     want = up(int(total * config.pairs_budget_factor) + cx)
     return max(up(cx + 128), min(want, up(total + cx)))
-
-
-def depth_levels(depth, visible, bits_d: int) -> torch.Tensor:
-    """Range-normalized quantized depth in [0, 2^bits_d), in float32
-    exactly as the JAX fused key computes it."""
-    dvalid = visible & (depth > 0)
-    inf = torch.tensor(float("inf"), dtype=depth.dtype, device=depth.device)
-    dmin = torch.amin(torch.where(dvalid, depth, inf))
-    dmax = torch.amax(torch.where(dvalid, depth, -inf))
-    levels = torch.tensor(float((1 << bits_d) - 1), dtype=torch.float32)
-    span = torch.clamp(dmax - dmin, min=1e-12)
-    dq = torch.clamp((depth - dmin) / span, 0.0, 1.0) * levels.to(depth.device)
-    return torch.clamp(dq.to(torch.int32), max=(1 << bits_d) - 1)
-
-
-def fused_bits(total_tiles: int) -> int:
-    return 31 - max(1, total_tiles - 1).bit_length() - 1
 
 
 def build_candidates(

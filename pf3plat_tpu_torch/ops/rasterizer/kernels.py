@@ -28,6 +28,8 @@ SOURCES = {
     "composite_fwd": "composite_fwd.cu",
     "composite_bwd": "composite_bwd.cu",
     "dup_reduce": "dup_reduce.cu",
+    "table_fwd": "table_fwd.cu",
+    "table_bwd": "table_bwd.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

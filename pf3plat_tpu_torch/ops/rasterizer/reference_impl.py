@@ -1,6 +1,6 @@
 """Brute-force O(pixels x gaussians) rasterizer: the correctness oracle.
 
-Port of `pf3plat_tpu/ops/rasterizer/{compositing,reference_impl}.py`.
+Port of `pf3plat_tpu/ops/rasterizer/reference_impl.py`.
 Composites every gaussian into every pixel after one global depth sort
 and STOPS for good at the first gaussian that would push a pixel's
 transmittance below `transmittance_min` (the CUDA 3DGS rule). The streamed
@@ -13,37 +13,8 @@ from __future__ import annotations
 import torch
 
 from .binning import tile_bounds
+from .compositing import composite_chunk, gaussian_alpha
 from .types import RasterizeConfig, ScreenGaussians
-
-
-def gaussian_alpha(px, py, xy, conic, opacity, valid, config: RasterizeConfig):
-    """Per (pixel, gaussian) alpha (..., p, g) with the 0.99 clamp and
-    1/255 cutoff."""
-    dx = px[..., :, None] - xy[..., None, :, 0]
-    dy = py[..., :, None] - xy[..., None, :, 1]
-    ca = conic[..., None, :, 0]
-    cb = conic[..., None, :, 1]
-    cc = conic[..., None, :, 2]
-    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-    alpha = opacity[..., None, :] * torch.exp(torch.clamp(power, max=0.0))
-    alpha = torch.clamp(alpha, max=config.alpha_clamp)
-    keep = valid[..., None, :] & (power <= 0.0) & (alpha >= config.alpha_min)
-    return torch.where(keep, alpha, torch.zeros_like(alpha))
-
-
-def composite_chunk(alpha, color, t_carry, accum, config: RasterizeConfig):
-    """Composite one depth-ordered block of gaussians into all pixels."""
-    s = torch.log1p(-alpha)
-    incl = torch.cumsum(s, dim=-1)
-    t_after = t_carry[..., None] * torch.exp(incl)
-    alive = t_after >= config.transmittance_min
-    t_before = t_carry[..., None] * torch.exp(incl - s)
-    weight = torch.where(alive, t_before * alpha, torch.zeros_like(alpha))
-    accum = accum + torch.einsum("...pg,...gc->...pc", weight, color)
-    t_carry = t_carry * torch.exp(
-        torch.sum(torch.where(alive, s, torch.zeros_like(s)), dim=-1)
-    )
-    return t_carry, accum
 
 
 def composite_bruteforce(

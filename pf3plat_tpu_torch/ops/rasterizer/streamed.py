@@ -25,7 +25,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .binning import INT32_MAX
+from .binning import INT32_MAX, sort_by_tile_depth
 from .compact import (
     N_FEAT,
     build_candidates,
@@ -47,22 +47,7 @@ def use_compaction(config: RasterizeConfig, b: int, n: int) -> bool:
 
 def _sort_pairs(tile, dkey, ids, feats, bits_d):
     """Sort rows by (tile | depth level, pair id) -> (tile_sorted, ids, feats)."""
-    max_t = torch.full_like(tile, INT32_MAX)
-    if bits_d is not None:
-        fused = torch.where(tile == INT32_MAX, max_t, (tile << bits_d) | dkey)
-        key = (fused.to(torch.int64) << 32) | ids.to(torch.int64)
-        key_sorted, perm = torch.sort(key)
-        fused_sorted = (key_sorted >> 32).to(torch.int32)
-        tile_sorted = torch.where(
-            fused_sorted == INT32_MAX, torch.full_like(fused_sorted, INT32_MAX),
-            fused_sorted >> bits_d,
-        )
-    else:
-        # Exact (tile, depth bits, id) order: stable sorts, least key first.
-        perm = torch.argsort(ids, stable=True)
-        perm = perm[torch.argsort(dkey[perm], stable=True)]
-        perm = perm[torch.argsort(tile[perm], stable=True)]
-        tile_sorted = tile[perm]
+    tile_sorted, perm = sort_by_tile_depth(tile, dkey, ids, bits_d)
     return tile_sorted, ids[perm], feats[:, perm]
 
 

@@ -111,6 +111,96 @@ def test_kernels_match_plain_on_card(card):
     assert torch.equal(red.view(torch.int32), ref.view(torch.int32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "kw,channels",
+    [(dict(), 3), (dict(tile_capacity=256, chunk=64), 3), (dict(tile_capacity=256), 1)],
+    ids=["cap1024-chunk128", "cap256-chunk64", "one-channel"],
+)
+def test_table_kernels_match_plain_on_card(card, kw, channels):
+    """B6 within 1e-5 (image, final T, checkpoints) and B7 within 1e-4 of
+    the largest value per table column, against their plain versions, with a
+    cotangent on the final T too (the full-size checks are chip_smoke.py's)."""
+    import numpy as np
+
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, binning, pallas_impl
+    from pf3plat_tpu_torch.ops.rasterizer.project import make_camera, project_gaussians
+    from test_torch_helpers import make_scene_np
+
+    cfg = RasterizeConfig(**kw)
+    scene = {k: torch.as_tensor(v, device=card)
+             for k, v in make_scene_np(np.random.default_rng(0), n=4000, b=2, spread=0.6).items()}
+    cam = make_camera(scene["extrinsics"], scene["intrinsics"], (64, 96))
+    sh = scene["sh"][:, :, :channels, :1] if channels == 1 else scene["sh"]
+    screen = project_gaussians(cam, scene["means"], scene["covariances"], scene["opacities"],
+                               sh, 4, cfg, use_sh=channels == 3)
+    binned = binning.bin_gaussians_batched(screen, (64, 96), cfg)
+    bg = torch.full((2, channels), 0.3, device=card)
+    args = pallas_impl.prepare_tables(screen, binned, bg, cfg)
+    assert int(args["counts"].max()) > cfg.chunk  # more than one chunk walked
+    fwd = pallas_impl.composite_table_fwd_cuda(**args)
+    for a, r in zip(fwd, pallas_impl.composite_table_fwd_plain(**args)):
+        assert float((a - r).abs().max()) <= 1e-5
+    _, tfin, tchk = fwd
+    rows = args["table"].shape[0]
+    rng = np.random.default_rng(1)
+    g_img = torch.as_tensor(rng.standard_normal((rows, channels, 256)), dtype=torch.float32,
+                            device=card)
+    g_tfin = torch.as_tensor(rng.standard_normal((rows, 1, 256)), dtype=torch.float32,
+                             device=card)
+    bwd = [args["table"], args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk, g_img,
+           g_tfin, args["tiles_x"], channels, cfg]
+    got = pallas_impl.composite_table_bwd_cuda(*bwd)
+    ref = pallas_impl.composite_table_bwd_plain(*bwd)
+    for a, r in zip(got, ref):
+        for k in range(a.shape[-1]):
+            assert float((a[..., k] - r[..., k]).abs().max()) <= 1e-4 * float(r[..., k].abs().max())
+    # chunk 64 at 32x32-pixel tiles exceeds B7's shared memory: refused, not run
+    big = RasterizeConfig(tile_size=32, tile_capacity=256, chunk=64)
+    with pytest.raises(ValueError, match="shared memory"):
+        pallas_impl.composite_table_bwd_cuda(
+            torch.zeros((1, 256, 9), device=card), torch.zeros(1, dtype=torch.int32, device=card),
+            torch.zeros(1, dtype=torch.int32, device=card), torch.zeros((1, 3), device=card),
+            torch.zeros((1, 1, 1024), device=card), torch.zeros((1, 4, 1024), device=card),
+            torch.zeros((1, 3, 1024), device=card), torch.zeros((1, 1, 1024), device=card),
+            1, 3, big)
+
+
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("pf3plat_tpu_torch.ops.rasterizer",
+         ["render", "render_depth", "render_orthographic", "DepthRenderingMode",
+          "RasterizeConfig", "DEFAULT_CONFIG"]),
+        ("pf3plat_tpu_torch.ops.rasterizer.binning",
+         ["BinnedTiles", "bin_gaussians", "bin_gaussians_batched"]),
+        ("pf3plat_tpu_torch.ops.rasterizer.compositing", ["gaussian_alpha", "composite_chunk"]),
+        ("pf3plat_tpu_torch.ops.rasterizer.tiled",
+         ["pack_features", "tile_pixel_coords", "composite_tables", "composite_tiles"]),
+        ("pf3plat_tpu_torch.ops.rasterizer.pallas_impl",
+         ["composite_tiles_pallas", "composite_tiles_pallas_batched", "CompositeTable",
+          "composite_table_fwd_plain", "composite_table_bwd_plain"]),
+        ("pf3plat_tpu_torch.training.metrics",
+         ["compute_psnr", "compute_ssim", "pose_errors", "pose_auc"]),
+        ("pf3plat_tpu_torch.geometry.transforms", ["geodesic_distance", "translation_angle"]),
+    ],
+    ids=lambda x: x if isinstance(x, str) else "",
+)
+def test_public_names_of_the_table_slice(module, names):
+    """The names the JAX package exports for this slice exist in the port
+    under the same module paths, and its kernel sources are registered."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    missing = [name for name in names if not hasattr(mod, name)]
+    assert not missing, f"{module} lacks {missing}"
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+
+    for name in ("table_fwd", "table_bwd"):
+        assert (kernels.CSRC / kernels.SOURCES[name]).is_file()
+        assert name in kernels.LAUNCHES
+
+
 def test_model_entry_point_needs_device_off_card():
     """PF3plat defaults to cuda; without a card it raises unless the caller
     passes device="cpu"."""
