@@ -8,18 +8,27 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. device  - GPU name and power limit (nvidia-smi), build of the six
+  1. device  - GPU name and power limit (nvidia-smi), build of the nine
                kernel libraries;
   2. b1..b7_bench - the hand-written kernels (compact_pairs = B1,
                composite_fwd = B2, composite_bwd = B3, dup_reduce = B4,
-               table_fwd = B6, table_bwd = B7) against their plain PyTorch
-               versions on bench.py's scene (2 views, 131,072 gaussians;
-               fixed upstream gradients from numpy seeds 1 and 2);
+               composite_bwd_blocks = B5, table_fwd = B6, table_bwd = B7)
+               against their plain PyTorch versions on bench.py's scene (2
+               views, 131,072 gaussians; fixed upstream gradients from numpy
+               seeds 1 and 2); B5's merged blocks against B3's output;
+     attn_fwd_*, attn_bwd_* - the attention kernels against their plain
+               versions at the pose-stack shape (9, 4, 4097, 32) and at the
+               frozen ViT's shape for 9 views (read from the model's
+               configuration), with SDPA on the same tensors as yardstick;
   3. render_fwd_bwd - the bench scene through `render`, forward and
                backward with autograd, once per kernel backend (`streamed`,
                `pallas`): ms and Mrays/s (bench.py's definition), and the
                rasterizer's gradients against the same screen-space
                gaussians rendered on the CPU (plain versions);
+     mesh_render - the bench scene through `render(..., mesh=)` on a
+               (data=1, tile=4) mesh of the one card, three ways (`streamed`
+               without compaction = the B5 path, `streamed` shard-local,
+               `pallas`): image and gradients against the unsharded render;
   4. serve   - the full-width RE10K serving request (b=1, v=5, 256x256,
                ViT-L UniDepth, 1024 keypoints, 9 LightGlue layers, 128 depth
                candidates, SH degree 4, production rasterizer config), random
@@ -40,8 +49,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
                CUDA events, with the launch counters zeroed just before and
                read just after; once per kernel backend, plus one `streamed`
                step without budget truncation whose loss and gradient norm
-               the `pallas` step must match; then b1..b4, b6 and b7 on the
-               warm-up step's own render inputs (9 cameras of 131,072
+               the `pallas` step must match; `train_mesh`: the same step
+               through a (data=2, tile=2) mesh of the one card, once without
+               compaction (B2 and B5 four times a step; loss and gradient
+               norm against the unsharded step) and once with the production
+               config (shard-local: B1-B4 four times a step); then b1..b7 on
+               the warm-up step's own render inputs (9 cameras of 131,072
                gaussians);
   7. the kernels line, the nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
@@ -62,6 +75,7 @@ import traceback
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+LOG = REPO / "build" / "chip_smoke.jsonl"
 SEED = 0
 TOL_B2 = 1e-5
 # B3 per channel: max|kernel - plain| <= TOL_B3 * max|plain| (256-pixel sums
@@ -82,16 +96,49 @@ TOL_BACKENDS = 2e-2
 # streamed backend without budget truncation: the same pairs, composited in
 # chunks that start at other slots (saturated pixels differ slightly).
 TOL_TRAIN_BACKENDS = 1e-2
+# Shard-local mesh render against the unsharded one: a tile's chunks start
+# at other pairs (offsets into the shard's own sorted array), so a saturated
+# pixel resets its transmittance elsewhere (the reason of TOL_BACKENDS): at
+# most the T left at a reset, < 1e-2, times a colour in the image, on few
+# pixels (the mean is printed), and the same share of a field's largest
+# gradient. Gated only where no shard's budget overflowed.
+TOL_SHARD_LOCAL_IMG = TOL_BACKENDS
+TOL_SHARD_LOCAL_GRAD = 1e-2
+# Loss and gradient norm of the B5-path sharded training step against the
+# unsharded step without compaction (the same pairs in the same chunks).
+TOL_TRAIN_MESH = 1e-4
+# kernels the model's own layers launch per request / per training step
+MODEL_FWD_KERNELS = ("attention_fwd",)
+MODEL_TRAIN_KERNELS = ("attention_fwd", "attention_bwd")
 # kernels each decoder backend must launch: forward (serving), and training
 FWD_KERNELS = {"streamed": ("compact_pairs", "composite_fwd"), "pallas": ("table_fwd",)}
 TRAIN_KERNELS = {"streamed": ("compact_pairs", "composite_fwd", "composite_bwd", "dup_reduce"),
                  "pallas": ("table_fwd", "table_bwd")}
 # Published H100 peaks (NVIDIA data sheet; SXM part, PCIe part).
-PEAKS = {"sxm": dict(bw=3.35e12, fp32=67e12), "pcie": dict(bw=2.0e12, fp32=51e12)}
+PEAKS = {"sxm": dict(bw=3.35e12, fp32=67e12, bf16=989e12),
+         "pcie": dict(bw=2.0e12, fp32=51e12, bf16=756e12)}
+# Merged B5 blocks against B3's dP (one arithmetic, shared source): relative
+# to the largest gradient; exact equality is reported beside it.
+TOL_B5_B3 = 1e-6
+# Attention kernels against their plain versions, relative to the largest
+# magnitude of each output: bf16-rounded probabilities and dS, f32 sums taken
+# in another order, a fast exp. The log-sum-exp is f32 throughout.
+TOL_ATTN = 1e-2
+TOL_LSE = 1e-3
+# The pose and depth stacks' attention at the training batch (b * v = 9
+# views, 4 heads, 64 x 64 tokens + the pose token, head dim 32).
+ATTN_POSE_SHAPE = (9, 4, 4097, 4097, 32)
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line, and append it to build/chip_smoke.jsonl in the
+    checkout (the whole run's record where a caller keeps only the end of
+    the output)."""
+    line = json.dumps(obj)
+    print(line, flush=True)
+    LOG.parent.mkdir(exist_ok=True)
+    with LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -231,14 +278,15 @@ def check_b2(screen, image_shape, background, config, tag: str) -> dict:
     return row
 
 
-def check_backward(screen, image_shape, background, config, tag: str):
-    """Kernels B3 and B4 vs their plain versions on the same inputs: the
-    sorted pairs and B2's checkpoints of `screen`, and a fixed upstream
-    image gradient from numpy seed 1. -> (B3 row, B4 row)."""
+def backward_inputs(screen, image_shape, background, config):
+    """What kernels B3 and B5 take for `screen`: the sorted pairs, B2's
+    final T and checkpoints, and a fixed upstream image gradient from numpy
+    seed 1 -> (B2's arguments, prepare_streamed's extras, the backward's
+    keyword arguments)."""
     import numpy as np
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import compact, streamed
+    from pf3plat_tpu_torch.ops.rasterizer import streamed
 
     args, extra = streamed.prepare_streamed(screen, image_shape, background, config)
     _, tfin, tchk = streamed.composite_fwd_cuda(**args)
@@ -250,6 +298,19 @@ def check_backward(screen, image_shape, background, config, tag: str):
                tile_ids=args["tile_ids"], nproc=streamed.n_processed(tchk),
                bg_rows=args["bg_rows"], tfin=tfin, tchk=tchk, g_tiles=g_tiles,
                tiles_x=args["tiles_x"], channels=args["channels"], config=config)
+    return args, extra, bwd
+
+
+def check_backward(screen, image_shape, background, config, tag: str):
+    """Kernels B3 and B4 vs their plain versions on the same inputs: the
+    sorted pairs and B2's checkpoints of `screen`, and a fixed upstream
+    image gradient from numpy seed 1. -> (B3 row, B4 row)."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import compact, streamed
+
+    args, extra, bwd = backward_inputs(screen, image_shape, background, config)
+    rows = args["base"].shape[0]
     got = streamed.composite_bwd_cuda(**bwd)
     ref = streamed.composite_bwd_plain(**bwd)
     errs = {}
@@ -301,6 +362,132 @@ def check_backward(screen, image_shape, background, config, tag: str):
               rows=ids_u.numel(), real_rows=real, gaussians=n_gauss)
     emit(b4)
     return b3, b4
+
+
+def check_b5(screen, image_shape, background, config, tag: str) -> dict:
+    """Kernel B5 vs its plain version on the sorted pairs and B2's
+    checkpoints of `screen` (fixed upstream gradient, numpy seed 1), per
+    feature row at B3's tolerance; then its merged blocks against kernel
+    B3's dP on the same inputs (the same arithmetic: TOL_B5_B3)."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import streamed
+
+    args, _, bwd = backward_inputs(screen, image_shape, background, config)
+    rows = args["base"].shape[0]
+    got = streamed.composite_bwd_blocks_cuda(**bwd)
+    ref = streamed.composite_bwd_blocks_plain(**bwd)
+    errs = {}
+    for name, a, r in (("dblk", got[0], ref[0]), ("dbg", got[1], ref[1])):
+        for k in range(a.shape[2] if name == "dblk" else a.shape[1]):
+            ak, rk = (a[:, :, k], r[:, :, k]) if name == "dblk" else (a[:, k], r[:, k])
+            err = float((ak - rk).abs().max())
+            scale = float(rk.abs().max())
+            if not (math.isfinite(err) and err <= TOL_B3 * scale):
+                raise AssertionError(f"B5 {tag}: {name}[{k}] max abs err {err} > "
+                                     f"{TOL_B3} * {scale}")
+            errs[f"{name}{k}"] = err
+    del ref
+    n_cols = args["featP"].shape[1]
+    merged = streamed.merge_blocks(got[0], args["base"], n_cols)
+    dP, dbg = streamed.composite_bwd_cuda(**bwd)
+    diff = float((merged - dP).abs().max())
+    scale = float(dP.abs().max())
+    if not (diff <= TOL_B5_B3 * scale and torch.equal(got[1], dbg)):
+        raise AssertionError(f"B5 {tag}: merged blocks differ from B3's dP by {diff} "
+                             f"(> {TOL_B5_B3} * {scale}) or d(bg) differs")
+    pairs = int(args["counts"].sum())
+    evaluations = 256 * pairs
+    ms = cuda_ms(lambda: streamed.composite_bwd_blocks_cuda(**bwd), 10)
+    merge_ms = cuda_ms(lambda: streamed.merge_blocks(got[0], args["base"], n_cols), 10)
+    plain_ms = cuda_ms(lambda: streamed.composite_bwd_blocks_plain(**bwd), 2, warmup=1)
+    n_chunks = config.tile_capacity // config.chunk + 1
+    moved = (36 * n_cols + rows * 4 * 5 + rows * 12 * 2
+             + rows * 256 * 4 * (n_chunks + 1 + args["channels"]) + got[0].numel() * 4)
+    pk = peaks()
+    t_bytes, t_ops = moved / pk["bw"] * 1e3, evaluations * OPS_B3 / pk["fp32"] * 1e3
+    row = dict(phase=f"b5_{tag}", max_abs_err=max(errs.values()), errs=errs, tol_rel=TOL_B3,
+               merged_vs_b3_max_abs_diff=diff, merged_equals_b3=bool(torch.equal(merged, dP)),
+               ms=ms, merge_ms=merge_ms, plain_ms=plain_ms, library_ms=None,
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
+               block_bytes=got[0].numel() * 4, pairs_in_segments=pairs, evaluations=evaluations)
+    emit(row)
+    return row
+
+
+def check_attention(tag: str, b: int, h: int, n: int, m: int, d: int):
+    """The attention kernels vs their plain versions at (b, h, n | m, d):
+    q, k, v and the output's cotangent from numpy seeds 3-6, rounded to bf16
+    outside the timed region. Tolerance (bf16 products, sums in another
+    order): max|kernel - plain| <= TOL_ATTN * max|plain| per output, the
+    log-sum-exp within TOL_LSE. Library yardstick: SDPA on the same bf16
+    tensors. Bounds: 4 n m d b h operations forward, 10 n m d b h backward,
+    at the dense bf16 tensor-core peak. -> (forward row, backward row)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from pf3plat_tpu_torch.models import layers
+
+    def make(seed, tokens):
+        x = np.random.default_rng(seed).standard_normal((b, h, tokens, d)).astype(np.float32)
+        return torch.as_tensor(x, device="cuda").to(torch.bfloat16).contiguous()
+
+    q, k, v, g = make(3, n), make(4, m), make(5, m), make(6, n)
+    scale = d**-0.5
+    out, lse = layers.attention_fwd_cuda(q, k, v, scale)
+    ref_out, ref_lse = layers.attention_fwd_plain(q, k, v, scale)
+    torch.cuda.synchronize()
+    e_out, e_lse = float((out - ref_out).abs().max()), float((lse - ref_lse).abs().max())
+    s_out = float(ref_out.abs().max())
+    if not (math.isfinite(e_out) and e_out <= TOL_ATTN * s_out and e_lse <= TOL_LSE):
+        raise AssertionError(f"attention fwd {tag}: out err {e_out} (> {TOL_ATTN} * {s_out}) "
+                             f"or lse err {e_lse} (> {TOL_LSE})")
+    del ref_out, ref_lse
+    grads = layers.attention_bwd_cuda(q, k, v, out, lse, g, scale)
+    ref_grads = layers.attention_bwd_plain(q, k, v, out, lse, g, scale)
+    torch.cuda.synchronize()
+    errs = {}
+    for name, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
+        err, sc = float((a - r).abs().max()), float(r.abs().max())
+        if not (math.isfinite(err) and err <= TOL_ATTN * sc):
+            raise AssertionError(f"attention bwd {tag}: {name} err {err} > {TOL_ATTN} * {sc}")
+        errs[name] = err
+    del ref_grads, grads
+    torch.cuda.empty_cache()
+
+    fwd_ms = cuda_ms(lambda: layers.attention_fwd_cuda(q, k, v, scale), 10)
+    bwd_ms = cuda_ms(lambda: layers.attention_bwd_cuda(q, k, v, out, lse, g, scale), 5)
+    fwd_plain = cuda_ms(lambda: layers.attention_fwd_plain(q, k, v, scale), 2, warmup=1)
+    bwd_plain = cuda_ms(lambda: layers.attention_bwd_plain(q, k, v, out, lse, g, scale), 2,
+                        warmup=1)
+    torch.cuda.empty_cache()
+    lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+    lib_bwd = cuda_ms(
+        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), 5)
+    flops = 4.0 * n * m * d * b * h
+    moved_f = (q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4
+    moved_b = ((2 * q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4
+               + (q.numel() + 2 * k.numel()) * 4)
+    pk = peaks()
+    rows = []
+    for phase, ms, plain_ms, lib, ops, moved, err, extra in (
+            ("attn_fwd", fwd_ms, fwd_plain, lib_fwd, flops, moved_f, e_out,
+             dict(err_lse=e_lse, out_max=s_out)),
+            ("attn_bwd", bwd_ms, bwd_plain, lib_bwd, 2.5 * flops, moved_b, max(errs.values()),
+             dict(errs=errs, library_fwd_bwd_ms=lib_fwd + lib_bwd))):
+        t_bytes, t_ops = moved / pk["bw"] * 1e3, ops / pk["bf16"] * 1e3
+        row = dict(phase=f"{phase}_{tag}", shape=[b, h, n, m, d], max_abs_err=err,
+                   tol_rel=TOL_ATTN, ms=ms, plain_ms=plain_ms, library_ms=lib,
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   tflops=ops / (ms * 1e-3) / 1e12, **extra)
+        emit(row)
+        rows.append(row)
+    return rows
 
 
 def table_inputs(screen, image_shape, background, config) -> dict:
@@ -468,6 +655,80 @@ def render_fwd_bwd(scene, config, impl: str):
               grad_err_vs_cpu=errs, tol_rel=TOL_B3))
 
 
+def mesh_render(scene, mesh):
+    """The bench scene through `render(..., mesh=mesh)`, forward and
+    backward, three ways, each against the same render without a mesh:
+    `streamed` without compaction (B2 per shard, B5 + merge backward) and
+    `pallas` (B6 / B7 per shard) at B3's tolerance, per field of the
+    gradient relative to its largest value; `streamed` with the production
+    config (shard-local pipeline) at TOL_SHARD_LOCAL_* where no shard's
+    budget overflowed, else finiteness only, with written / total per shard
+    reported."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, compact, kernels, render
+    from pf3plat_tpu_torch.ops.rasterizer.shard_local import shard_pairs_budget
+
+    diff = ("means", "covariances", "sh", "opacities", "background")
+    shape = (256, 256)
+    tgt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3)).astype(
+        np.float32), device="cuda")
+
+    def run(impl, config, mesh_arg):
+        leaves = {k: scene[k].clone().requires_grad_(k in diff) for k in scene}
+        kernels.reset_launches()
+        img = render(**leaves, far=leaves["near"] * 100, image_shape=shape, impl=impl,
+                     config=config, device="cuda", mesh=mesh_arg)
+        ((img - tgt) ** 2).mean().backward()
+        torch.cuda.synchronize()
+        return img.detach(), {k: leaves[k].grad for k in diff}, dict(kernels.LAUNCHES)
+
+    cases = (("streamed_blocks", "streamed", RasterizeConfig(),
+              dict(composite_fwd=mesh.size, composite_bwd_blocks=mesh.size, composite_bwd=0)),
+             ("streamed_shard_local", "streamed", PRODUCTION_CONFIG,
+              dict(compact_pairs=mesh.size, composite_fwd=mesh.size, composite_bwd=mesh.size,
+                   dup_reduce=mesh.size)),
+             ("pallas", "pallas", PRODUCTION_CONFIG,
+              dict(table_fwd=mesh.size, table_bwd=mesh.size)))
+    for name, impl, config, want in cases:
+        img, grads, launches = run(impl, config, mesh)
+        ref_img, ref_grads, _ = run(impl, config, None)
+        wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+        if wrong:
+            raise AssertionError(f"mesh_render {name}: launches {wrong}, want {want}")
+        img_err = float((img - ref_img).abs().max())
+        errs = {k: float((grads[k] - ref_grads[k]).abs().max()) for k in diff}
+        scales = {k: float(ref_grads[k].abs().max()) for k in diff}
+        finite = math.isfinite(img_err) and all(math.isfinite(e) for e in errs.values())
+        row = dict(phase="mesh_render", case=name, mesh=mesh.shape, img_max_abs_err=img_err,
+                   img_mean_abs_err=float((img - ref_img).abs().mean()), grad_max_abs_err=errs, grad_scale=scales, launches=want)
+        if name == "streamed_shard_local":
+            screen = project(scene, shape, config)
+            b, n = screen.depth.shape
+            rows = b * 256
+            rps = rows // mesh.size
+            budget = shard_pairs_budget(config, b, n, mesh.size)
+            stats = []
+            for k in range(mesh.size):
+                cp = compact.compact_pairs(screen, shape, config, tile_lo=k * rps,
+                                           tile_hi=(k + 1) * rps, budget_override=budget)
+                stats.append([int(cp["written"]), int(cp["total"])])
+            gated = all(w == tot for w, tot in stats)
+            tol_img, tol_grad = TOL_SHARD_LOCAL_IMG, TOL_SHARD_LOCAL_GRAD
+            row.update(shard_budget=budget, written_total_per_shard=stats, gated=gated)
+        else:
+            gated, tol_img, tol_grad = True, TOL_B2, TOL_B3
+        row.update(tol_img=tol_img, tol_grad_rel=tol_grad)
+        emit(row)
+        ok = finite and (not gated or (img_err <= tol_img and all(
+            errs[k] <= tol_grad * scales[k] for k in diff)))
+        if not ok:
+            raise AssertionError(f"mesh_render {name}: sharded render differs from the "
+                                 f"unsharded one: image {img_err}, gradients {errs}")
+
+
 def model_config(impl: str = "streamed", raster=None):
     from pf3plat_tpu_torch.models.backbones.unidepth import UniDepthCfg
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG, DecoderCfg
@@ -488,6 +749,18 @@ def model_config(impl: str = "streamed", raster=None):
     )
 
 
+def vit_attention_shape(cfg, views: int, image_shape):
+    """(b, h, n, m, d) of the frozen ViT's self-attention for `views`
+    images, read from the model's configuration: UniDepth's inference
+    resolution in patches plus the class token."""
+    from pf3plat_tpu_torch.models.backbones.unidepth import infer_shapes
+
+    vit = cfg.unidepth.vit
+    (hi, wi), _ = infer_shapes(image_shape, cfg.unidepth.pixels_bounds, vit.patch_size)
+    n = (hi // vit.patch_size) * (wi // vit.patch_size) + 1
+    return views, vit.num_heads, n, n, vit.embed_dim // vit.num_heads
+
+
 @contextlib.contextmanager
 def capture_decode():
     """Record the decoder's inputs (decode -> render) of the model calls
@@ -497,19 +770,37 @@ def capture_decode():
     captured = {}
     decode = pf3plat_mod.decode
 
-    def recording(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape,
-                  depth_mode=None):
+    def recording(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape, **kwargs):
         captured.update(gaussians=type(gaussians)(*(x.detach() for x in gaussians)),
                         extrinsics=extrinsics.detach(), intrinsics=intrinsics.detach(),
                         near=near.detach(), far=far.detach())
-        return decode(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape,
-                      depth_mode=depth_mode)
+        return decode(cfg, gaussians, extrinsics, intrinsics, near, far, image_shape, **kwargs)
 
     pf3plat_mod.decode = recording
     try:
         yield captured
     finally:
         pf3plat_mod.decode = decode
+
+
+@contextlib.contextmanager
+def capture_attention():
+    """Record the (b, h, n, m, d) of every attention the model hands to the
+    hand-written kernels inside the block."""
+    from pf3plat_tpu_torch.models import layers
+
+    shapes = set()
+    forward = layers.attention_fwd
+
+    def recording(q, k, v, scale):
+        shapes.add((*q.shape[:3], k.shape[2], q.shape[3]))
+        return forward(q, k, v, scale)
+
+    layers.attention_fwd = recording
+    try:
+        yield shapes
+    finally:
+        layers.attention_fwd = forward
 
 
 def serve(impl: str = "streamed", n_requests: int = 3):
@@ -539,7 +830,7 @@ def serve(impl: str = "streamed", n_requests: int = 3):
         with torch.no_grad():
             return model(images, intr, near, far, 0, generator=gen, timer=timer)
 
-    with capture_decode() as captured:
+    with capture_decode() as captured, capture_attention() as attn_shapes:
         request()  # warm-up: allocator, cuBLAS/cuDNN plans, kernel load
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -578,37 +869,46 @@ def serve(impl: str = "streamed", n_requests: int = 3):
         if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"serve: {name} has shape {tuple(x.shape)} (want {shape}) "
                                  "or non-finite values")
-    for name in FWD_KERNELS[impl]:
+    for name in FWD_KERNELS[impl] + MODEL_FWD_KERNELS:
         if launches[name] < n_requests:
             raise AssertionError(f"serve {impl}: kernel {name} launched {launches[name]} times "
                                  f"in {n_requests} requests")
     emit(dict(phase="serve", impl=impl, model_build_s=build_s, requests=per_request,
               max_memory_allocated_bytes=peak, launches=launches,
+              attention_shapes=sorted(attn_shapes),
               matches_valid=int(enc.correspondences.valid.sum()),
               color_mean=float(out.color.mean())))
     return captured, launches, out.color.cpu()
 
 
-def train(impl: str = "streamed", n_steps: int = 2, raster=None):
+def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
     """The training step of record on the card through
     `DecoderCfg(impl=impl)` (production rasterizer config unless `raster` is
-    given): a warm-up step (its render inputs are kept for the kernel
-    checks), then `n_steps` timed steps -> (captured render inputs,
-    launches, the warm-up's and the steps' losses and gradient norms)."""
+    given; through `mesh` if given, phase `train_mesh`): a warm-up step (its
+    render inputs are kept for the kernel checks), then `n_steps` timed
+    steps -> (captured render inputs, launches, the warm-up's and the steps'
+    losses and gradient norms, the attention shapes seen)."""
     import numpy as np
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
     from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.parallel import shard_batch, shard_train_step
     from pf3plat_tpu_torch.training.losses import LossCfg
     from pf3plat_tpu_torch.training.train import (
         OptimizerCfg, init_train_state, make_model_train_step)
 
     torch.manual_seed(SEED)
     model = PF3plat(model_config(impl, raster), device="cuda")
-    expected = TRAIN_KERNELS[impl]
-    if impl == "streamed" and raster is not None and raster.pairs_budget_factor == 0:
-        expected = ("composite_fwd", "composite_bwd")  # no compaction: no B1, no B4
+    exact = impl == "streamed" and raster is not None and raster.pairs_budget_factor == 0
+    # launches per step of the decoder's kernels: once each, or once per shard
+    per_step_launches = {k: 1 for k in TRAIN_KERNELS[impl]}
+    if exact:  # no compaction: no B1, no B4
+        per_step_launches = {"composite_fwd": 1, "composite_bwd": 1}
+    if mesh is not None:
+        if exact:  # the blocks backward takes B3's place
+            per_step_launches = {"composite_fwd": 1, "composite_bwd_blocks": 1, "composite_bwd": 0}
+        per_step_launches = {k: n * mesh.size for k, n in per_step_launches.items()}
     rng = np.random.default_rng(SEED)
     # re10k.yaml: b=3, 2 context views + 1 target spliced by the union
     # trick (the target stack is the context stack), 256x256
@@ -620,11 +920,14 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None):
     batch = dict(context=dict(image=images, intrinsics=intr, near=torch.ones((b, v), device="cuda"),
                               far=torch.full((b, v), 100.0, device="cuda")),
                  target=dict(image=images))
-    step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg())
+    step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg(), mesh=mesh)
+    if mesh is not None:
+        step_fn = shard_train_step(step_fn, mesh)
+        batch = shard_batch(mesh, batch)
     state = init_train_state(model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
-    with capture_decode() as captured:
+    with capture_decode() as captured, capture_attention() as attn_shapes:
         state, warm_aux = step_fn(state, batch, generator=gen)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -644,9 +947,12 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None):
         state, aux = step_fn(state, batch, generator=gen, timer=timer)
         torch.cuda.synchronize()
         row = dict(total_ms=(time.perf_counter() - wall0) * 1e3)
-        missing = [k for k in expected if kernels.LAUNCHES[k] == before[k]]
-        if missing:
-            raise AssertionError(f"train {impl}: kernels {missing} not launched in a step")
+        wrong = {k: kernels.LAUNCHES[k] - before[k] for k, want in per_step_launches.items()
+                 if kernels.LAUNCHES[k] - before[k] != want}
+        missing = [k for k in MODEL_TRAIN_KERNELS if kernels.LAUNCHES[k] == before[k]]
+        if wrong or missing:
+            raise AssertionError(f"train {impl}: launches in a step {wrong} (want "
+                                 f"{per_step_launches}); not launched: {missing}")
         prev = "start"
         for stage in stages:
             row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
@@ -659,15 +965,17 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None):
         bad = [k for k, x in row.items() if not math.isfinite(x)]
         if bad:
             raise AssertionError(f"train {impl}: non-finite {bad}")
-    emit(dict(phase="train", impl=impl, pairs_budget_factor=(raster or model.cfg.decoder.raster
-                                                             ).pairs_budget_factor,
+    emit(dict(phase="train" if mesh is None else "train_mesh", impl=impl,
+              mesh=None if mesh is None else mesh.shape,
+              pairs_budget_factor=(raster or model.cfg.decoder.raster).pairs_budget_factor,
               batch=[b, v, h, w], steps=per_step, max_memory_allocated_bytes=peak,
-              launches=launches, warmup_loss=float(warm_aux["loss"])))
+              launches=launches, attention_shapes=sorted(attn_shapes),
+              warmup_loss=float(warm_aux["loss"])))
     trace = [dict(loss=float(warm_aux["loss"]), grad_norm=float(warm_aux["grad_norm"]))]
     trace += [dict(loss=r["loss"], grad_norm=r["grad_norm"]) for r in per_step]
     del model, state, step_fn
     torch.cuda.empty_cache()
-    return captured, launches, trace
+    return captured, launches, trace, attn_shapes
 
 
 def render_scene(captured):
@@ -776,10 +1084,16 @@ KERNEL_META = {
                       "pf3plat_tpu/ops/rasterizer/streamed.py:588"),
     "dup_reduce": ("pf3plat_tpu_torch/csrc/dup_reduce.cu",
                    "pf3plat_tpu/ops/rasterizer/compact.py:448"),
+    "composite_bwd_blocks": ("pf3plat_tpu_torch/csrc/composite_bwd_blocks.cu",
+                             "pf3plat_tpu/ops/rasterizer/streamed.py:777"),
     "table_fwd": ("pf3plat_tpu_torch/csrc/table_fwd.cu",
                   "pf3plat_tpu/ops/rasterizer/pallas_impl.py:98"),
     "table_bwd": ("pf3plat_tpu_torch/csrc/table_bwd.cu",
                   "pf3plat_tpu/ops/rasterizer/pallas_impl.py:187"),
+    "attention_fwd": ("pf3plat_tpu_torch/csrc/attention_fwd.cu",
+                      "pf3plat_tpu/models/layers.py:73"),
+    "attention_bwd": ("pf3plat_tpu_torch/csrc/attention_bwd.cu",
+                      "pf3plat_tpu/models/layers.py:73"),
 }
 
 
@@ -793,11 +1107,13 @@ def main(argv) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    LOG.unlink(missing_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
     from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels
+    from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -817,13 +1133,18 @@ def main(argv) -> int:
     check_b2(screen, shape, scene["background"], config, "bench")
     check_backward(screen, shape, scene["background"], config, "bench")
     check_tables(screen, shape, scene["background"], config, "bench")
+    check_b5(screen, shape, scene["background"], RasterizeConfig(), "bench")
     del screen
+    attn_pose = check_attention("pose", *ATTN_POSE_SHAPE)
+    vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], shape)
+    attn_vit = check_attention("vit", *vit_shape)
 
     if "--kernels" in argv:
         return 0
 
     for impl in ("streamed", "pallas"):
         render_fwd_bwd(scene, config, impl)
+    mesh_render(scene, make_mesh(MeshCfg(data_axis=1, tile_axis=4), device="cuda"))
     del scene
 
     # Serving: the same request (same seeds, so the same gaussians) through
@@ -854,14 +1175,18 @@ def main(argv) -> int:
 
     # Training: each backend's steps, then every kernel on the streamed
     # warm-up step's own render inputs.
-    _, launches_p, trace_p = train("pallas")
-    captured, launches, _ = train("streamed")
+    _, launches_p, trace_p, _ = train("pallas")
+    captured, launches, _, attn_shapes = train("streamed")
     launches.update({k: launches_p[k] for k in TRAIN_KERNELS["pallas"]})
+    # the attention kernels were timed at shapes the training step really uses
+    if not {ATTN_POSE_SHAPE, vit_shape} <= attn_shapes:
+        raise AssertionError(f"train: attention shapes {sorted(attn_shapes)} lack "
+                             f"{ATTN_POSE_SHAPE} or {vit_shape}")
     # The tables hold every candidate, the production streamed budget drops
     # some with random weights; with the exact expansion (budget factor 0)
     # the streamed backend composites the same pairs as the tables, so the
     # two training paths must agree step by step.
-    _, _, trace_s = train("streamed", 1, raster=RasterizeConfig())
+    _, _, trace_s, _ = train("streamed", 1, raster=RasterizeConfig())
     worst = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_p, trace_s)
                 for k in ("loss", "grad_norm"))
     emit(dict(phase="train_backends", pallas=trace_p[:2], streamed_exact=trace_s,
@@ -869,6 +1194,21 @@ def main(argv) -> int:
     if not worst <= TOL_TRAIN_BACKENDS:
         raise AssertionError(f"train: pallas vs streamed (exact expansion) loss / grad_norm "
                              f"differ by {worst} > {TOL_TRAIN_BACKENDS}")
+    # The sharded step on a (data=2, tile=2) mesh of the one card: without
+    # compaction (B2 and B5 once per shard) it must reproduce the unsharded
+    # exact-expansion step; with the production config it takes the
+    # shard-local pipeline (B1-B4 once per shard).
+    mesh = make_mesh(MeshCfg(data_axis=2, tile_axis=2), device="cuda")
+    _, launches_m, trace_m, _ = train("streamed", 1, raster=RasterizeConfig(), mesh=mesh)
+    worst = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_m, trace_s)
+                for k in ("loss", "grad_norm"))
+    emit(dict(phase="train_mesh_vs_unsharded", sharded=trace_m, unsharded=trace_s,
+              max_rel_diff=worst, tol=TOL_TRAIN_MESH))
+    if not worst <= TOL_TRAIN_MESH:
+        raise AssertionError(f"train_mesh: sharded (B5 path) vs unsharded loss / grad_norm "
+                             f"differ by {worst} > {TOL_TRAIN_MESH}")
+    launches["composite_bwd_blocks"] = launches_m["composite_bwd_blocks"]
+    train("streamed", 1, mesh=mesh)
     scene = render_scene(captured)
     screen = project(scene, shape, config)
     rows = {
@@ -879,10 +1219,15 @@ def main(argv) -> int:
         screen, shape, scene["background"], config, "train")
     rows["table_fwd"], rows["table_bwd"] = check_tables(
         screen, shape, scene["background"], config, "train")
+    rows["composite_bwd_blocks"] = check_b5(screen, shape, scene["background"],
+                                            RasterizeConfig(), "train")
+    # the attention kernels at the pose-stack shape (forward and backward of
+    # a training step); the ViT shape's rows are the attn_*_vit lines
+    rows["attention_fwd"], rows["attention_bwd"] = attn_pose
 
-    # launches: each backend's training path over its timed steps (the
-    # forward kernels also ran on the serving path: `launches_serve`);
-    # times at the training step's shapes
+    # launches: each backend's training path over its timed steps, B5 over
+    # the sharded step (the forward kernels also ran on the serving path:
+    # `launches_serve`); times at the training step's shapes
     line = []
     for name, (src, replaces) in KERNEL_META.items():
         r = rows[name]
@@ -891,6 +1236,8 @@ def main(argv) -> int:
                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"], bound_by=r["bound_by"],
                          library_ms=r["library_ms"]))
+    line[-2].update(ms_vit=attn_vit[0]["ms"], library_ms_vit=attn_vit[0]["library_ms"],
+                    bound_ms_vit=attn_vit[0]["bound_ms"])
     emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

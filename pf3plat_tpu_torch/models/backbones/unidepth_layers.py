@@ -26,7 +26,10 @@ def _ln(dim: int) -> nn.LayerNorm:
 
 
 def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(d)) v over the -2 axis (float32 on the CPU)."""
+    """softmax(q k^T / sqrt(d)) v over the -2 axis (float32 on the CPU).
+    The JAX package's `_sdpa` (`unidepth_layers.py:263`) is a plain einsum
+    that never reaches its TPU flash kernel, so on the card this stays the
+    library's attention (one head of dim 512 in the depth head)."""
     if q.device.type == "cuda":
         return F.scaled_dot_product_attention(*common_dtype(q, k, v))
     logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])

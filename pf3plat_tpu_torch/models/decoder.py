@@ -37,7 +37,10 @@ def decode(
     far: torch.Tensor,         # (b, v)
     image_shape: tuple[int, int],
     depth_mode: DepthRenderingMode | None = None,
+    mesh=None,
 ) -> DecoderOutput:
+    """`mesh`: optional `parallel.Mesh`; the kernel backends split the
+    (batch * view * tile) rows over its shards."""
     b, v = extrinsics.shape[:2]
     dev = extrinsics.device
 
@@ -53,7 +56,7 @@ def decode(
         flat(extrinsics), flat(intrinsics), flat(near), flat(far), image_shape,
         bg, rep(gaussians.means), rep(gaussians.covariances),
         rep(gaussians.harmonics), rep(gaussians.opacities),
-        impl=cfg.impl, config=cfg.raster, device=dev,
+        impl=cfg.impl, config=cfg.raster, device=dev, mesh=mesh,
     )
     h, w = image_shape
     depth = None
@@ -61,6 +64,6 @@ def decode(
         depth = render_depth(
             flat(extrinsics), flat(intrinsics), flat(near), flat(far), image_shape,
             rep(gaussians.means), rep(gaussians.covariances), rep(gaussians.opacities),
-            mode=depth_mode, impl=cfg.impl, config=cfg.raster, device=dev,
+            mode=depth_mode, impl=cfg.impl, config=cfg.raster, device=dev, mesh=mesh,
         ).reshape(b, v, h, w)
     return DecoderOutput(color=color.reshape(b, v, h, w, 3), depth=depth)

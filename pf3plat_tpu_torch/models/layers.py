@@ -9,12 +9,18 @@ carry the released LightGlue state-dict names (`Wqkv`, `out_proj`, `ffn.*`,
 Flax defaults kept on purpose: LayerNorm/GroupNorm epsilon 1e-6 and the
 tanh-approximate `nn.gelu`.
 
-Attention: on a CUDA tensor every attention goes to
-`F.scaled_dot_product_attention`. On the CPU it runs a twin of the JAX
-package's `mxu_einsum` (`layers.py:60-66,148-153`): inputs rounded to
+Attention: a large unmasked attention (4-D operands, no mask, no bias,
+min(n, m) >= 2048: the JAX package's rule for its TPU flash kernel,
+`layers.py:135-147`) on CUDA tensors runs the hand-written kernels
+`csrc/attention_fwd.cu` / `csrc/attention_bwd.cu` through `FlashAttention`;
+every other attention on the card goes to
+`F.scaled_dot_product_attention`. On the CPU `attention` runs a twin of the
+JAX package's `mxu_einsum` (`layers.py:60-66,148-153`): inputs rounded to
 bf16, products accumulated in f32, softmax in f32, weights rounded to bf16
 before the second product, exactly as the JAX reference computes on every
-backend.
+backend but the TPU. `attention_fwd_plain` / `attention_bwd_plain` are the
+kernels' plain versions (the CPU path of `FlashAttention`, and what the
+kernels are held against on the card).
 """
 
 from __future__ import annotations
@@ -24,7 +30,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.rasterizer import kernels
+
 LN_EPS = 1e-6
+# Attention goes to the hand-written kernels from this many tokens on the
+# shorter side (the JAX package's `_FLASH_MIN_TOKENS`).
+_FLASH_MIN_TOKENS = 2048
+# Head dims the kernels are built for; smaller ones are zero-padded up.
+_FLASH_HEAD_DIMS = (32, 64)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -53,6 +66,181 @@ def common_dtype(*xs: torch.Tensor) -> list[torch.Tensor]:
     return [x.to(dt) for x in xs]
 
 
+def _bf16_contiguous(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to bf16 in contiguous layout, in one pass over a strided or
+    float32 input (the qkv views of a fused projection); x itself when it is
+    that already."""
+    if x.dtype == torch.bfloat16 and x.is_contiguous():
+        return x
+    return torch.empty(x.shape, dtype=torch.bfloat16, device=x.device).copy_(x)
+
+
+def _check_attention_args(tensors, shapes):
+    """Validate what the CUDA kernels take: contiguous, 16-byte aligned
+    tensors of the given dtype and shape on one CUDA device."""
+    dev = tensors[0][1].device
+    if dev.type != "cuda":
+        raise ValueError("the attention kernels need CUDA tensors")
+    for (name, x, dtype), shape in zip(tensors, shapes):
+        if x.device != dev or x.dtype != dtype or tuple(x.shape) != tuple(shape) \
+                or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{name}: want a contiguous, 16-byte aligned {dtype} tensor of "
+                             f"shape {tuple(shape)} on {dev}")
+
+
+def _attention_dims(q, k):
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError("attention kernels: want (batch, heads, tokens, head_dim) operands")
+    b, h, n, d = q.shape
+    m = k.shape[2]
+    if d not in _FLASH_HEAD_DIMS:
+        raise ValueError(f"attention kernels: head dim {d} not in {_FLASH_HEAD_DIMS}")
+    if b * h > 65535:
+        raise ValueError("attention kernels: batch * heads must fit the grid's y dimension")
+    return b, h, n, m, d
+
+
+def attention_fwd_plain(q, k, v, scale: float):
+    """Plain PyTorch version of the forward kernel: q, k, v bf16
+    (b, h, n | m, d) -> (out f32 (b, h, n, d), lse f32 (b, h, n)), the
+    log-sum-exp of the scaled logits per row."""
+    sim = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    lse = torch.logsumexp(sim, dim=-1)
+    p = torch.exp(sim - lse[..., None])
+    return torch.matmul(_bf16(p), v.float()), lse
+
+
+def attention_bwd_plain(q, k, v, out, lse, d_out, scale: float):
+    """Plain PyTorch version of the backward kernel: q, k, v, d_out bf16,
+    out and lse from the forward -> (dq, dk, dv) f32. The probabilities are
+    recomputed from lse; P and dS are rounded to bf16 before their products."""
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), d_out.float()
+    p = torch.exp(torch.matmul(qf, kf.transpose(-1, -2)) * scale - lse[..., None])
+    delta = (gf * out).sum(dim=-1, keepdim=True)
+    ds = _bf16(p * (torch.matmul(gf, vf.transpose(-1, -2)) - delta))
+    dv = torch.matmul(_bf16(p).transpose(-1, -2), gf)
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dq = torch.matmul(ds, kf) * scale
+    return dq, dk, dv
+
+
+def attention_fwd_cuda(q, k, v, scale: float):
+    """The forward kernel on the card (`csrc/attention_fwd.cu`)."""
+    b, h, n, m, d = _attention_dims(q, k)
+    _check_attention_args(
+        (("q", q, torch.bfloat16), ("k", k, torch.bfloat16), ("v", v, torch.bfloat16)),
+        ((b, h, n, d), (b, h, m, d), (b, h, m, d)))
+    out = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
+    lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
+    ct = kernels.ctypes
+    fn = kernels.load("attention_fwd").pf3_attention_fwd
+    fn.restype = ct.c_int
+    fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
+    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out), kernels.ptr(lse),
+            b * h, n, m, d, scale, kernels.stream_ptr(q.device))
+    kernels.check("attention_fwd", rc)
+    kernels.LAUNCHES["attention_fwd"] += 1
+    return out, lse
+
+
+def attention_bwd_cuda(q, k, v, out, lse, d_out, scale: float):
+    """The backward kernel on the card (`csrc/attention_bwd.cu`)."""
+    b, h, n, m, d = _attention_dims(q, k)
+    bf, f32 = torch.bfloat16, torch.float32
+    _check_attention_args(
+        (("q", q, bf), ("k", k, bf), ("v", v, bf), ("d_out", d_out, bf), ("out", out, f32),
+         ("lse", lse, f32)),
+        ((b, h, n, d), (b, h, m, d), (b, h, m, d), (b, h, n, d), (b, h, n, d), (b, h, n)))
+    dev = q.device
+    delta = torch.empty((b, h, n), dtype=f32, device=dev)
+    dq = torch.empty((b, h, n, d), dtype=f32, device=dev)
+    dk = torch.empty((b, h, m, d), dtype=f32, device=dev)
+    dv = torch.empty((b, h, m, d), dtype=f32, device=dev)
+    ct = kernels.ctypes
+    fn = kernels.load("attention_bwd").pf3_attention_bwd
+    fn.restype = ct.c_int
+    fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
+    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(d_out),
+            kernels.ptr(out), kernels.ptr(lse), kernels.ptr(delta), kernels.ptr(dq),
+            kernels.ptr(dk), kernels.ptr(dv), b * h, n, m, d, scale, kernels.stream_ptr(dev))
+    kernels.check("attention_bwd", rc)
+    kernels.LAUNCHES["attention_bwd"] += 1
+    return dq, dk, dv
+
+
+def attention_fwd(q, k, v, scale: float):
+    """The forward kernel for CUDA tensors, its plain version for CPU tensors."""
+    fn = attention_fwd_plain if q.device.type == "cpu" else attention_fwd_cuda
+    return fn(q, k, v, scale)
+
+
+def attention_bwd(q, k, v, out, lse, d_out, scale: float):
+    """The backward kernel for CUDA tensors, its plain version for CPU tensors."""
+    fn = attention_bwd_plain if q.device.type == "cpu" else attention_bwd_cuda
+    return fn(q, k, v, out, lse, d_out, scale)
+
+
+class FlashAttention(torch.autograd.Function):
+    """softmax(q k^T / sqrt(d)) v over (b, h, n | m, d) operands without the
+    (n, m) logits in device memory, with a hand-written backward (the JAX
+    package's `_flash_attention` and its VJP). q, k, v of any float dtype and
+    stride are rounded once to contiguous bf16; head dims below a built size
+    are zero-padded to it (zeros add nothing to the logits, the padded
+    output channels are cut off) and the scale is the true head dim's. The
+    output has q's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        d = q.shape[-1]
+        padded = next((x for x in _FLASH_HEAD_DIMS if x >= d), None)
+        if padded is None:
+            raise ValueError(f"FlashAttention: head dim {d} above {_FLASH_HEAD_DIMS[-1]}")
+        scale = d**-0.5
+
+        def prep(x):
+            x = _bf16_contiguous(x)
+            return F.pad(x, (0, padded - d)) if padded != d else x
+
+        qb, kb, vb = prep(q), prep(k), prep(v)
+        out, lse = attention_fwd(qb, kb, vb, scale)
+        ctx.save_for_backward(qb, kb, vb, out, lse)
+        ctx.meta = (d, scale, q.dtype, k.dtype, v.dtype)
+        return out[..., :d].to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        qb, kb, vb, out, lse = ctx.saved_tensors
+        d, scale, *dtypes = ctx.meta
+        gb = _bf16_contiguous(g)
+        if qb.shape[-1] != d:
+            gb = F.pad(gb, (0, qb.shape[-1] - d))
+        grads = attention_bwd(qb, kb, vb, out, lse, gb, scale)
+        return tuple(x[..., :d].to(dt) for x, dt in zip(grads, dtypes))
+
+
+def use_flash_attention(q, k, mask=None, bias=None) -> bool:
+    """The JAX package's dispatch rule with the card in the TPU's place:
+    CUDA tensors, no mask, no bias, 4-D, at least 2048 tokens on the shorter
+    side."""
+    return (q.device.type == "cuda" and mask is None and bias is None and q.dim() == 4
+            and min(q.shape[-2], k.shape[-2]) >= _FLASH_MIN_TOKENS)
+
+
+def library_attention(q, k, v, mask=None, bias=None) -> torch.Tensor:
+    """`F.scaled_dot_product_attention` with the JAX code's masking (masked
+    logits at -1e30, `bias` added): every attention on the card that the JAX
+    package computes outside its TPU flash kernel."""
+    add = bias
+    if mask is not None:
+        neg = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+        neg.masked_fill_(~mask, -1e30)
+        add = neg if add is None else add + neg
+    q, k, v = common_dtype(q, k, v)
+    if add is not None:
+        add = add.to(q.dtype)
+    return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+
+
 def attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -70,16 +258,11 @@ def attention(
     """
     d = q.shape[-1]
     scale = d**-0.5
-    if q.device.type == "cuda":
-        add = bias
-        if mask is not None:
-            neg = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
-            neg.masked_fill_(~mask, -1e30)
-            add = neg if add is None else add + neg
+    if use_flash_attention(q, k, mask, bias):
         q, k, v = common_dtype(q, k, v)
-        if add is not None:
-            add = add.to(q.dtype)
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+        return FlashAttention.apply(q, k, v)
+    if q.device.type == "cuda":
+        return library_attention(q, k, v, mask=mask, bias=bias)
     if prescale:
         sim = mxu_matmul(q * scale, k.transpose(-1, -2))
     else:
@@ -172,9 +355,12 @@ class CrossBlock(nn.Module):
         v0, v1 = split(self.to_v(x0)), split(self.to_v(x1))
         if x0.device.type == "cuda":
             # SDPA's 1/sqrt(head) equals the JAX (qk0 s^.5)(qk1 s^.5) scaling.
-            m0 = attention(qk0, qk1, v1, mask=mask)
-            m1 = attention(qk1, qk0, v0, mask=None if mask is None
-                           else mask.transpose(-1, -2)) if update_x1 else None
+            # The JAX block forms its logits outside any TPU kernel (they
+            # serve both directions), so this stays the library's attention
+            # at every length.
+            m0 = library_attention(qk0, qk1, v1, mask=mask)
+            m1 = library_attention(qk1, qk0, v0, mask=None if mask is None
+                                   else mask.transpose(-1, -2)) if update_x1 else None
         else:
             s = head**-0.5
             sim = mxu_matmul(qk0 * s**0.5, (qk1 * s**0.5).transpose(-1, -2))

@@ -96,9 +96,11 @@ class PF3plat(nn.Module):
         ransac_noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         timer=None,
+        mesh=None,
     ) -> tuple[EncoderOutput, Optional[DecoderOutput]]:
         """`timer`, if given, is called with a stage name ("perceive",
-        "encoder", "decoder") as each stage ends."""
+        "encoder", "decoder") as each stage ends. `mesh` (`parallel.Mesh`)
+        is handed to the decoder's renders."""
         images, intrinsics, near, far = (
             t.to(self.device, torch.float32) for t in (images, intrinsics, near, far))
         h, w = images.shape[2:4]
@@ -113,7 +115,7 @@ class PF3plat(nn.Module):
         if render_views:
             c2w = torch.linalg.inv(enc.refined_poses)
             out = decode(self.cfg.decoder, enc.gaussians, c2w, intrinsics, near, far,
-                         (h, w), depth_mode=depth_mode)
+                         (h, w), depth_mode=depth_mode, mesh=mesh)
             if timer:
                 timer("decoder")
         return enc, out

@@ -13,7 +13,9 @@ modes), `render_orthographic`, returning channel-last (b, h, w, c) images.
   * "bruteforce" - O(pixels x gaussians) oracle for tests
 Gradients reach the means, covariances, SH, opacities and background, and
 through the projection the extrinsics. The default backend is "streamed"
-here (the JAX `render` defaults to "tiled"); `mesh=` is not ported.
+here (the JAX `render` defaults to "tiled"). `mesh=` (`parallel.Mesh`)
+splits the "streamed" and "pallas" backends' (batch * tile) rows over the
+mesh's shards; the other backends ignore it.
 """
 
 from __future__ import annotations
@@ -54,10 +56,13 @@ def render(
     impl: str = "streamed",
     config: RasterizeConfig = DEFAULT_CONFIG,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Render each batch element's gaussians into its camera -> (b, h, w, c).
 
-    Runs on `device` (default `cuda`; the inputs are moved there)."""
+    Runs on `device` (default `cuda`; the inputs are moved there). `mesh`:
+    optional `parallel.Mesh`; the kernel backends split their tile rows
+    over its shards (projection and binning stay on `device`)."""
     dev = resolve_device(device)
     extrinsics, intrinsics, near, far, background, means, covariances, sh, \
         opacities = (
@@ -78,10 +83,11 @@ def render(
         camera, means, covariances, opacities, sh, sh_degree, config, use_sh=use_sh
     )
     if impl == "streamed":
-        return composite_streamed_batched(screen, image_shape, background, config)
+        return composite_streamed_batched(screen, image_shape, background, config, mesh=mesh)
     if impl == "pallas":
         binned = bin_gaussians_batched(screen, image_shape, config)
-        return composite_tiles_pallas_batched(screen, binned, image_shape, background, config)
+        return composite_tiles_pallas_batched(screen, binned, image_shape, background, config,
+                                              mesh=mesh)
     if impl not in ("tiled", "bruteforce"):
         raise ValueError(f"unknown rasterizer impl: {impl}")
     # Per camera, as the JAX package vmaps them: the fused sort key's depth
@@ -119,6 +125,7 @@ def render_depth(
     impl: str = "streamed",
     config: RasterizeConfig = DEFAULT_CONFIG,
     device: str | torch.device | None = None,
+    mesh=None,
 ) -> torch.Tensor:
     """Render camera-space depth by splatting each gaussian's z (transformed
     per `mode`) as a one-channel color on a black background -> (b, h, w)."""
@@ -149,7 +156,7 @@ def render_depth(
         fake[..., None, None],  # (b, n, 1 channel, 1 "sh")
         opacities,
         scale_invariant=scale_invariant, use_sh=False, impl=impl, config=config,
-        device=dev,
+        device=dev, mesh=mesh,
     )
     return result[..., 0]
 

@@ -56,9 +56,14 @@ def pairs_budget(config: RasterizeConfig, b: int, n: int) -> int:
 
 
 def build_candidates(
-    screen: ScreenGaussians, image_shape: tuple[int, int], config: RasterizeConfig
+    screen: ScreenGaussians, image_shape: tuple[int, int], config: RasterizeConfig,
+    tile_lo: int | None = None, tile_hi: int | None = None,
 ) -> dict:
     """Slot-major (max_dup, b, n) candidate stream, flattened.
+
+    `tile_lo` / `tile_hi`: keep only pairs whose flat batch*tile key lies in
+    [tile_lo, tile_hi), the ownership mask of the shard-local mesh path
+    (applied to `valid` before compaction, `compact.py:343-345`).
 
     Returns dict(valid (P,) bool, tile (P,) i32 flat batch*tile key,
     dkey (P,) i32 depth sort key, pid (P,) i32 g-major pair id,
@@ -94,6 +99,9 @@ def build_candidates(
         )
     tile = (bounds.ty0[None] + dy) * tiles_x + (bounds.tx0[None] + dx)
     b_off = (torch.arange(b, dtype=torch.int32, device=dev) * num_tiles)[None, :, None]
+    if tile_lo is not None:
+        key = tile + b_off
+        in_box = in_box & (key >= tile_lo) & (key < tile_hi)
     g_idx = torch.arange(b * n, dtype=torch.int32, device=dev).reshape(1, b, n)
     pid = (g_idx * max_dup + slot).reshape(total_pairs)
 
@@ -221,17 +229,22 @@ def compact_candidates(cand: dict, budget: int, window: int) -> dict:
 
 
 def compact_pairs(
-    screen: ScreenGaussians, image_shape: tuple[int, int], config: RasterizeConfig
+    screen: ScreenGaussians, image_shape: tuple[int, int], config: RasterizeConfig,
+    tile_lo: int | None = None, tile_hi: int | None = None,
+    budget_override: int | None = None,
 ) -> dict:
     """Expand candidate pairs (slot-major) and compact the valid rows into
-    a static `budget`-row layout.
+    a static `budget`-row layout. `tile_lo` / `tile_hi` keep only the pairs
+    of that flat tile-key range, `budget_override` sets the budget directly
+    (the shard-local mesh path: each shard compacts its own tile rows into
+    its own budget).
 
     Returns dict(tile, dkey, ids (budget,) i32 with INT32_MAX pad,
     feats (9, budget) f32 with zero pad, written () i32, total () i32,
     budget int, bits_d)."""
     b, n = screen.depth.shape
-    cand = build_candidates(screen, image_shape, config)
-    budget = pairs_budget(config, b, n)
+    cand = build_candidates(screen, image_shape, config, tile_lo, tile_hi)
+    budget = pairs_budget(config, b, n) if budget_override is None else budget_override
     out = compact_candidates(cand, budget, config.compact_window)
     return dict(
         tile=out["tile"], dkey=out["dkey"], ids=out["ids"], feats=out["feats"],

@@ -27,9 +27,12 @@ SOURCES = {
     "compact_pairs": "compact_pairs.cu",
     "composite_fwd": "composite_fwd.cu",
     "composite_bwd": "composite_bwd.cu",
+    "composite_bwd_blocks": "composite_bwd_blocks.cu",
     "dup_reduce": "dup_reduce.cu",
     "table_fwd": "table_fwd.cu",
     "table_bwd": "table_bwd.cu",
+    "attention_fwd": "attention_fwd.cu",
+    "attention_bwd": "attention_bwd.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

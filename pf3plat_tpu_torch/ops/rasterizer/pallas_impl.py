@@ -1,8 +1,8 @@
 """Dense-table rasterizer backend (`impl="pallas"`): per-tile feature tables
 composited by kernels B6 (forward) and B7 (backward).
 
-Port of `pf3plat_tpu/ops/rasterizer/pallas_impl.py` (single device; `mesh=`
-is not ported). `binning.bin_gaussians_batched` gives each (camera, tile)
+Port of `pf3plat_tpu/ops/rasterizer/pallas_impl.py`.
+`binning.bin_gaussians_batched` gives each (camera, tile)
 row the ids of its first `tile_capacity` gaussians in depth order; their
 features are gathered into a dense table with ordinary PyTorch indexing,
 and the boundary of the hand-written backward is exactly the composite
@@ -29,6 +29,11 @@ the last alive slot. So T never drops below the threshold and the walk ends
 only with the count: the chunk-reset semantics of the streamed kernels.
 `n_chunks = tile_capacity // chunk` here (no extra window chunk).
 
+With a `mesh` of more than one shard (`parallel.Mesh`) the table's (batch *
+tile) rows split evenly over the shards and the composite runs once per
+shard on its rows, on the shard's device (`pallas_impl.py:531-551`); binning,
+the gather and its backward stay global.
+
 Dispatch: `composite_table_fwd` / `composite_table_bwd` launch the
 hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`) for CUDA
 tensors and take the plain PyTorch versions for CPU tensors.
@@ -40,7 +45,7 @@ import torch
 
 from . import kernels
 from .binning import BinnedTiles
-from .streamed import _chunk_alpha, _pixel_centres, running_sum, tiles_to_image
+from .streamed import _chunk_alpha, _pixel_centres, running_sum, shard_ranges, tiles_to_image
 from .types import RasterizeConfig, ScreenGaussians
 
 TABLE_LAYOUTS = ("f_major", "slot_major")
@@ -324,14 +329,29 @@ def composite_tiles_pallas_batched(
     image_shape: tuple[int, int],
     background: torch.Tensor,  # (b, c)
     config: RasterizeConfig,
+    mesh=None,
 ) -> torch.Tensor:
     """Dense-table compositing of a batch of cameras -> (b, h, w, c); the
-    batch is folded into the tile rows (rows = b * tiles)."""
+    batch is folded into the tile rows (rows = b * tiles). With a `mesh` of
+    more than one shard the rows are split over all its axes and each shard
+    composites its own (kernels B6 / B7 per shard)."""
     h, w = image_shape
     args = prepare_tables(screen, binned, background, config)
-    img_tiles, _ = CompositeTable.apply(
-        args["table"], args["counts"], args["tile_ids"], args["bg_rows"],
-        args["tiles_x"], args["channels"], config)
+    row_args = (args["table"], args["counts"], args["tile_ids"], args["bg_rows"])
+    if mesh is not None and mesh.size > 1:
+        shards = shard_ranges(args["table"].shape[0], mesh)
+        rps = shards[0][1]
+        # `split` keeps the table's backward one concatenation of the
+        # shards' d(table) instead of one zero-padded plane per shard.
+        pieces = zip(*(x.split(rps) for x in row_args))
+        home = mesh.devices[0]
+        img_tiles = torch.cat([
+            CompositeTable.apply(*(x.to(dev) for x in piece), args["tiles_x"],
+                                 args["channels"], config)[0].to(home)
+            for piece, (_, _, dev) in zip(pieces, shards)])
+    else:
+        img_tiles, _ = CompositeTable.apply(*row_args, args["tiles_x"], args["channels"],
+                                            config)
     out = tiles_to_image(img_tiles, screen.depth.shape[0], binned.num_tiles_x,
                          binned.num_tiles_y, args["channels"], config.tile_size)
     return out[:, :h, :w]

@@ -1,8 +1,7 @@
 """Streamed rasterizer: pair sort + per-tile compositing, forward (kernel
 B2) and backward (kernels B3, B4).
 
-Port of `pf3plat_tpu/ops/rasterizer/streamed.py` (single device, no mesh).
-Gaussians expand into slot-major candidate pairs (compacted to a static
+Port of `pf3plat_tpu/ops/rasterizer/streamed.py`. Gaussians expand into slot-major candidate pairs (compacted to a static
 budget by kernel B1 when the scene is large enough), ONE `torch.sort` on
 the int64 key `fused << 32 | pair id` puts them in the JAX order exactly
 ((fused, id) is unique), segment starts come from `torch.searchsorted`,
@@ -15,9 +14,18 @@ unsorts the per-pair gradients with one sort on the pair ids, and sums them
 per gaussian (kernel B4 when compaction is on, a reshape-sum over
 `max_dup` when it is off).
 
+With a `mesh` of more than one shard (`parallel.Mesh`) the (batch * tile)
+rows split evenly over the shards. With compaction on, the whole pipeline
+runs per shard (`shard_local.py`). Without it the pair sort and the unsort
+stay global: kernel B2 runs once per shard on its slice of the tile rows
+with the whole sorted feature array, and the backward runs kernel B5 per
+shard, which emits per-(tile, chunk) gradient blocks instead of writing
+into the shared array; `merge_blocks` adds the blocks into sorted order.
+
 Dispatch: each kernel wrapper (`composite_fwd`, `composite_bwd`,
-`compact.dup_reduce`) launches the hand-written kernel for CUDA tensors
-and takes its plain PyTorch version for CPU tensors.
+`composite_bwd_blocks`, `compact.dup_reduce`) launches the hand-written
+kernel for CUDA tensors and takes its plain PyTorch version for CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -81,19 +89,30 @@ def pair_sort(screen: ScreenGaussians, image_shape, config: RasterizeConfig):
     return featP, ids_sorted, starts, tiles_x, tiles_y
 
 
-def pair_sort_compacted(screen: ScreenGaussians, image_shape, config: RasterizeConfig):
+def pair_sort_compacted(screen: ScreenGaussians, image_shape, config: RasterizeConfig,
+                        tile_lo: int | None = None, n_tiles_out: int | None = None,
+                        budget_override: int | None = None):
     """Compacted pipeline (the production config): kernel B1 compacts the
     candidates to `pairs_budget` rows, then the same sort runs over them.
 
-    Returns (featP (9, budget), ids_sorted, starts, tiles_x, tiles_y,
-    counts (2,) i32 = (written, total))."""
+    `tile_lo` + `n_tiles_out` (+ `budget_override`) restrict the pipeline to
+    the flat tile-key range [tile_lo, tile_lo + n_tiles_out): the
+    shard-local mesh path, where each shard compacts and sorts only its own
+    tile rows into its own budget.
+
+    Returns (featP (9, budget), ids_sorted, starts (n_tiles_out + 1,)
+    relative to the range, tiles_x, tiles_y, counts (2,) i32 = (written,
+    total))."""
     h, w = image_shape
     ts = config.tile_size
     tiles_x, tiles_y = -(-w // ts), -(-h // ts)
     b, n = screen.depth.shape
-    total_tiles = b * tiles_x * tiles_y
-    cand = build_candidates(screen, image_shape, config)
-    budget = pairs_budget(config, b, n)
+    if n_tiles_out is None:
+        n_tiles_out = b * tiles_x * tiles_y
+    t0 = 0 if tile_lo is None else tile_lo
+    cand = build_candidates(screen, image_shape, config, tile_lo,
+                            None if tile_lo is None else tile_lo + n_tiles_out)
+    budget = pairs_budget(config, b, n) if budget_override is None else budget_override
     c = config.chunk
     n_chunks = config.tile_capacity // c + 1
     if budget < n_chunks * c or budget % c:
@@ -107,7 +126,7 @@ def pair_sort_compacted(screen: ScreenGaussians, image_shape, config: RasterizeC
     )
     starts = torch.searchsorted(
         tile_sorted,
-        torch.arange(total_tiles + 1, dtype=torch.int32, device=featP.device),
+        t0 + torch.arange(n_tiles_out + 1, dtype=torch.int32, device=featP.device),
     ).to(torch.int32)
     return featP.contiguous(), ids_sorted, starts, tiles_x, tiles_y, cp["counts"]
 
@@ -272,11 +291,14 @@ def n_processed(tchk):
     return (tchk.amax(dim=2) > 0.0).sum(dim=1).to(torch.int32)
 
 
-def composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
-                        g_tiles, tiles_x, channels, config: RasterizeConfig):
-    """Plain PyTorch version of kernel B3 (`_bwd_chunk_grads` per chunk,
-    walked in reverse) -> (dP (9, n) f32 per sorted pair row, zero outside
-    every tile segment; dbg (rows, ch))."""
+def _bwd_chunks_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                      g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """The reverse walk of kernels B3 and B5 in plain PyTorch
+    (`_bwd_chunk_grads` per chunk, last chunk first) -> (chunks, dbg):
+    `chunks` lists (i, d_chunk (9, rows, chunk)), the gradients of every
+    tile row's window rows base * chunk + i * chunk + lane, exact zeros
+    outside the tile's segment and in chunks the forward did not process;
+    dbg (rows, ch)."""
     dev = featP.device
     ts = config.tile_size
     ck = config.chunk
@@ -290,7 +312,7 @@ def composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin
     gt = (bg_rows[:, :, None] * g).sum(dim=1)  # (rows, p)
     dbg = (g * tfin).sum(dim=2)
     tail = tfin[:, 0] * gt
-    dP = torch.zeros_like(featP)
+    chunks = []
     for i in reversed(range(n_chunks)):
         cols = base.to(torch.int64)[:, None] * ck + i * ck + lane[None]  # (rows, ck)
         data = featP[:, cols]  # (9, rows, ck)
@@ -321,19 +343,46 @@ def composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin
             (gexp * dalpha).sum(dim=1),
         ] + list(torch.einsum("rcp,rpg->crg", g, wgt))
         rows_d += [torch.zeros_like(rows_d[0])] * (N_FEAT - len(rows_d))
+        chunks.append((i, torch.stack(rows_d)))
+        tail = tail + m.sum(dim=-1)
+    return chunks, dbg
+
+
+def composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                        g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Plain PyTorch version of kernel B3 -> (dP (9, n) f32 per sorted pair
+    row, zero outside every tile segment; dbg (rows, ch))."""
+    ck = config.chunk
+    chunks, dbg = _bwd_chunks_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
+                                    tchk, g_tiles, tiles_x, channels, config)
+    lane = torch.arange(ck, device=featP.device)
+    dP = torch.zeros_like(featP)
+    for i, d_chunk in chunks:
+        cols = base.to(torch.int64)[:, None] * ck + i * ck + lane[None]  # (rows, ck)
         # Values outside each tile's segment are exact zeros, so adding the
         # overlapping windows leaves every row with its one owner's value.
-        dP.index_add_(1, cols.reshape(-1), torch.stack(rows_d).reshape(N_FEAT, -1))
-        tail = tail + m.sum(dim=-1)
+        dP.index_add_(1, cols.reshape(-1), d_chunk.reshape(N_FEAT, -1))
     return dP, dbg
 
 
-def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
-                       g_tiles, tiles_x, channels, config: RasterizeConfig):
-    """Kernel B3 on the card (`csrc/composite_bwd.cu`)."""
+def composite_bwd_blocks_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                               g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Plain PyTorch version of kernel B5 -> (dblk (rows, n_chunks, 9,
+    chunk): block [r, i] holds the gradients of window rows
+    base[r] * chunk + i * chunk + lane, exact zeros outside tile r's
+    segment and in chunks the forward did not process; dbg (rows, ch))."""
+    chunks, dbg = _bwd_chunks_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
+                                    tchk, g_tiles, tiles_x, channels, config)
+    blocks = [d_chunk for _, d_chunk in sorted(chunks, key=lambda c: c[0])]
+    return torch.stack(blocks).permute(2, 0, 1, 3).contiguous(), dbg
+
+
+def _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
+                    channels, config: RasterizeConfig):
+    """Validate what kernels B3 and B5 take; -> (rows, n_chunks)."""
     dev = featP.device
     if dev.type != "cuda":
-        raise ValueError("composite_bwd_cuda needs CUDA tensors")
+        raise ValueError("the compositing backward kernels need CUDA tensors")
     rows = base.shape[0]
     ts = config.tile_size
     p = ts * ts
@@ -357,12 +406,21 @@ def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
             raise ValueError(f"{name}: want a contiguous {shape} float32 tensor on {dev}")
     smem = 4 * (N_FEAT * ck + ck * p + (p // 32) * ck * N_FEAT)
     if not 1 <= channels <= 3 or p % 32 or p > 1024 or smem > 232448:
-        raise ValueError("composite_bwd supports 1-3 channels, tiles of a multiple of 32 "
-                         "pixels up to 1024, and chunk * pixels within shared memory")
-    dP = torch.zeros((N_FEAT, featP.shape[1]), dtype=torch.float32, device=dev)
+        raise ValueError("the compositing backward supports 1-3 channels, tiles of a multiple "
+                         "of 32 pixels up to 1024, and chunk * pixels within shared memory")
+    return rows, n_chunks
+
+
+def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Launch kernel B3 (`composite_bwd`) or B5 (`composite_bwd_blocks`):
+    one C signature, `out` being dP or the block set -> dbg (rows, ch)."""
+    dev = featP.device
+    rows = base.shape[0]
+    n_chunks = config.tile_capacity // config.chunk + 1
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
     ct = kernels.ctypes
-    fn = kernels.load("composite_bwd").pf3_composite_bwd
+    fn = getattr(kernels.load(name), f"pf3_{name}")
     fn.restype = ct.c_int
     fn.argtypes = (
         [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 9 + [ct.c_int] * 6
@@ -372,12 +430,37 @@ def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
         kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
         kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc), kernels.ptr(bg_rows),
         kernels.ptr(tfin), kernels.ptr(tchk), kernels.ptr(g_tiles), rows, channels, tiles_x,
-        ts, ck, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
-        config.transmittance_min, kernels.ptr(dP), kernels.ptr(dbg), kernels.stream_ptr(dev),
+        config.tile_size, config.chunk, n_chunks, config.alpha_clamp, config.alpha_min,
+        1.0 - config.alpha_clamp, config.transmittance_min, kernels.ptr(out), kernels.ptr(dbg),
+        kernels.stream_ptr(dev),
     )
-    kernels.check("composite_bwd", rc)
-    kernels.LAUNCHES["composite_bwd"] += 1
+    kernels.check(name, rc)
+    kernels.LAUNCHES[name] += 1
+    return dbg
+
+
+def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                       g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Kernel B3 on the card (`csrc/composite_bwd.cu`)."""
+    _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
+                    channels, config)
+    dP = torch.zeros((N_FEAT, featP.shape[1]), dtype=torch.float32, device=featP.device)
+    dbg = _launch_bwd("composite_bwd", dP, featP, base, off, counts, tile_ids, nproc, bg_rows,
+                      tfin, tchk, g_tiles, tiles_x, channels, config)
     return dP, dbg
+
+
+def composite_bwd_blocks_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                              g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Kernel B5 on the card (`csrc/composite_bwd_blocks.cu`); it writes
+    every element of the block set, so that is allocated uncleared."""
+    rows, n_chunks = _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
+                                     tchk, g_tiles, channels, config)
+    dblk = torch.empty((rows, n_chunks, N_FEAT, config.chunk), dtype=torch.float32,
+                       device=featP.device)
+    dbg = _launch_bwd("composite_bwd_blocks", dblk, featP, base, off, counts, tile_ids, nproc,
+                      bg_rows, tfin, tchk, g_tiles, tiles_x, channels, config)
+    return dblk, dbg
 
 
 def composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
@@ -386,6 +469,32 @@ def composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk
     fn = composite_bwd_plain if featP.device.type == "cpu" else composite_bwd_cuda
     return fn(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
               tiles_x, channels, config)
+
+
+def composite_bwd_blocks(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                         g_tiles, tiles_x, channels, config: RasterizeConfig):
+    """Kernel B5 for CUDA tensors, its plain version for CPU tensors."""
+    fn = composite_bwd_blocks_plain if featP.device.type == "cpu" else composite_bwd_blocks_cuda
+    return fn(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
+              tiles_x, channels, config)
+
+
+def merge_blocks(dblk, base, n_cols: int):
+    """Kernel B5's blocks (rows, n_chunks, 9, chunk) of all tile rows ->
+    dP (9, n_cols) in sorted order: block [r, i] is added to window
+    base[r] + i (`streamed.py:1224-1232`).
+
+    Adjacent tiles share a boundary window, so a window may receive several
+    blocks. Each pair row has one owner, though, and every other block holds
+    an exact zero there, so the sum does not depend on the order in which
+    `index_add_` adds them (x + 0 = x in any order): the result is the same
+    on every run and for any order of the rows."""
+    rows, n_chunks, n_feat, ck = dblk.shape
+    win = (base.to(torch.int64)[:, None]
+           + torch.arange(n_chunks, device=base.device)[None, :]).reshape(-1)
+    acc = torch.zeros((n_cols // ck, n_feat, ck), dtype=dblk.dtype, device=dblk.device)
+    acc.index_add_(0, win, dblk.reshape(rows * n_chunks, n_feat, ck))
+    return acc.permute(1, 0, 2).reshape(n_feat, n_cols)
 
 
 def tiles_to_image(img_tiles, b, tiles_x, tiles_y, channels, ts):
@@ -446,25 +555,59 @@ def unsort_reduce(dP, ids_sorted, b: int, n: int, compacted: bool, config: Raste
     return grads.view(N_FEAT, b * n, config.max_dup).sum(dim=-1)
 
 
+def shard_ranges(rows: int, mesh) -> list:
+    """The mesh's shards as (first row, end row, device) over `rows` tile
+    rows, row-major over the mesh axes."""
+    n_shards = mesh.size
+    if rows % n_shards:
+        raise ValueError(f"{rows} tile rows not divisible by mesh size {n_shards}")
+    rps = rows // n_shards
+    return [(k * rps, (k + 1) * rps, dev) for k, dev in enumerate(mesh.devices)]
+
+
+def _on_shards(fn, row_args: dict, shared: dict, mesh):
+    """Run `fn(**rows of the shard, **shared)` per shard on the shard's
+    device; the outputs come back to the first device, concatenated in
+    shard order. `row_args` are split along their first axis."""
+    rows = next(iter(row_args.values())).shape[0]
+    home = mesh.devices[0]
+    outs = []
+    for lo, hi, dev in shard_ranges(rows, mesh):
+        sliced = {k: v[lo:hi].to(dev) for k, v in row_args.items()}
+        moved = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in shared.items()}
+        outs.append([o.to(home) for o in fn(**sliced, **moved)])
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+ROW_ARGS = ("base", "off", "counts", "tile_ids", "bg_rows")
+
+
 class StreamedRasterize(torch.autograd.Function):
     """The streamed pipeline's render with its hand-written backward (the
     JAX package's `custom_vjp`, `streamed.py:1094-1277`). Differentiable
     inputs: xy, conic, opacity, color, background; depth, radius and valid
-    only steer binning and get no gradient."""
+    only steer binning and get no gradient. `mesh` with more than one shard:
+    B2 per shard forward, B5 per shard + `merge_blocks` backward."""
 
     @staticmethod
     def forward(ctx, xy, conic, opacity, color, background, depth, radius, valid,
-                image_shape, config):
+                image_shape, config, mesh=None):
         h, w = image_shape
         b, n = depth.shape
         screen = ScreenGaussians(xy=xy, depth=depth, conic=conic, radius=radius,
                                  color=color, opacity=opacity, valid=valid)
         args, extra = prepare_streamed(screen, image_shape, background, config)
-        img_tiles, tfin, tchk = composite_fwd(**args)
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            img_tiles, tfin, tchk = _on_shards(
+                composite_fwd, {k: args[k] for k in ROW_ARGS},
+                {k: v for k, v in args.items() if k not in ROW_ARGS}, mesh)
+        else:
+            img_tiles, tfin, tchk = composite_fwd(**args)
         ctx.save_for_backward(args["featP"], extra["ids_sorted"], args["base"], args["off"],
                               args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk)
         ctx.meta = (b, n, image_shape, args["tiles_x"], extra["tiles_y"], args["channels"],
-                    config, use_compaction(config, b, n))
+                    config, use_compaction(config, b, n), mesh if sharded else None)
         out = tiles_to_image(img_tiles, b, args["tiles_x"], extra["tiles_y"],
                              args["channels"], config.tile_size)
         return out[:, :h, :w]
@@ -472,14 +615,23 @@ class StreamedRasterize(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_img):
         featP, ids_sorted, base, off, counts, tile_ids, bg_rows, tfin, tchk = ctx.saved_tensors
-        b, n, _, tiles_x, tiles_y, channels, config, compacted = ctx.meta
+        b, n, _, tiles_x, tiles_y, channels, config, compacted, mesh = ctx.meta
         g_tiles = image_to_tiles(g_img.to(torch.float32), tiles_x, tiles_y, config.tile_size)
-        dP, dbg = composite_bwd(featP, base, off, counts, tile_ids, n_processed(tchk), bg_rows,
-                                tfin, tchk, g_tiles, tiles_x, channels, config)
+        nproc = n_processed(tchk)
+        if mesh is None:
+            dP, dbg = composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows,
+                                    tfin, tchk, g_tiles, tiles_x, channels, config)
+        else:
+            dblk, dbg = _on_shards(
+                composite_bwd_blocks,
+                dict(base=base, off=off, counts=counts, tile_ids=tile_ids, nproc=nproc,
+                     bg_rows=bg_rows, tfin=tfin, tchk=tchk, g_tiles=g_tiles),
+                dict(featP=featP, tiles_x=tiles_x, channels=channels, config=config), mesh)
+            dP = merge_blocks(dblk, base, featP.shape[1])
         d = unsort_reduce(dP, ids_sorted, b, n, compacted, config).T.reshape(b, n, N_FEAT)
         d_bg = dbg.reshape(b, tiles_x * tiles_y, channels).sum(dim=1)
         return (d[..., 0:2], d[..., 2:5], d[..., 5], d[..., 6 : 6 + channels], d_bg,
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 def composite_streamed_batched(
@@ -487,10 +639,23 @@ def composite_streamed_batched(
     image_shape: tuple[int, int],
     background: torch.Tensor,  # (b, c)
     config: RasterizeConfig,
+    mesh=None,
 ) -> torch.Tensor:
     """Streamed-pipeline rendering of a batch of cameras -> (b, h, w, c),
-    differentiable in xy, conic, opacity, color and background."""
+    differentiable in xy, conic, opacity, color and background.
+
+    `mesh`: optional `parallel.Mesh`. With compaction on, a mesh of more
+    than one shard takes the shard-local pipeline (`shard_local.py`: each
+    shard compacts, sorts, composites, unsorts and reduces only its own
+    tile rows, and the per-gaussian gradients are summed over the shards).
+    Without compaction only the compositing kernels' rows are split; the
+    pair sort and the gradient unsort stay global."""
+    b, n = screen.depth.shape
+    if mesh is not None and mesh.size > 1 and use_compaction(config, b, n):
+        from .shard_local import composite_shard_local
+
+        return composite_shard_local(screen, image_shape, background, config, mesh)
     return StreamedRasterize.apply(
         screen.xy, screen.conic, screen.opacity, screen.color, background,
-        screen.depth, screen.radius, screen.valid, tuple(image_shape), config,
+        screen.depth, screen.radius, screen.valid, tuple(image_shape), config, mesh,
     )

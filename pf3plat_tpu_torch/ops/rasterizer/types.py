@@ -2,9 +2,11 @@
 
 Port of `pf3plat_tpu/ops/rasterizer/types.py`: `RasterizeConfig` keeps every
 field of the JAX config with the same defaults, so one configuration means
-the same thing in both packages. Several fields steer TPU mechanisms only
-(`tiles_per_step`, `prefetch_depth`, `chunks_per_iter`,
-`shard_budget_slack`); the port accepts and ignores them. `table_layout`
+the same thing in both packages. Three fields steer TPU mechanisms only
+(`tiles_per_step`, `prefetch_depth`, `chunks_per_iter`); the port accepts
+and ignores them. `shard_budget_slack` is the per-shard headroom of the
+shard-local mesh path's pair budget (`shard_local.shard_pairs_budget`).
+`table_layout`
 names two TPU memory layouts of the dense-table backend's tables: the port
 checks the value and computes the same result for both (its kernels keep one
 layout, see `pallas_impl.py`).

@@ -125,26 +125,31 @@ def init_train_state(model) -> TrainState:
     return TrainState(params, init_opt_state(params), 0)
 
 
-def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg):
+def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=None):
     """Full-pipeline train step (`train.py:159-220`): frozen perception
     without gradients, encoder, render, losses, backward, update.
 
+    `mesh` (`parallel.Mesh`) reaches the decoder's renders.
     `train_step(state, batch, ransac_noise=None, generator=None,
-    timer=None) -> (state, aux)`. The batch holds `context` (image
-    (b, v, h, w, 3), intrinsics, near, far) and `target` (image): with the
-    union trick the target stack is the context stack. `aux` holds the loss
+    timer=None, grad_sync=None) -> (state, aux)`; `grad_sync`, if given,
+    is called with the gradients before the optimizer update and averages
+    them in place across processes (`parallel.shard_train_step`). The
+    batch holds `context` (image (b, v, h, w, 3), intrinsics, near, far)
+    and `target` (image): with the union trick the target stack is the context stack. `aux` holds the loss
     parts, `psnr`, `loss` and `grad_norm` (the global norm before
     clipping). `timer`, if given, is called with "perceive", "encoder",
     "decoder", "loss", "backward", "optimizer" as each stage ends."""
     schedule = make_schedule(opt_cfg)
 
-    def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None):
+    def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None,
+                   grad_sync=None):
         ctx = batch["context"]
         target = batch["target"]["image"].to(model.device, torch.float32)
         for p in state.params:
             p.grad = None
         enc, out = model(ctx["image"], ctx["intrinsics"], ctx["near"], ctx["far"], state.step,
-                         ransac_noise=ransac_noise, generator=generator, timer=timer)
+                         ransac_noise=ransac_noise, generator=generator, timer=timer,
+                         mesh=mesh)
         lpips_fn = model.lpips_apply if loss_cfg.lpips_weight > 0.0 else None
         intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
         loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
@@ -158,6 +163,8 @@ def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg):
         if timer:
             timer("backward")
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        if grad_sync is not None:
+            grad_sync(grads)
         updates, opt_state = opt_update(opt_cfg, schedule, grads, state.opt_state)
         with torch.no_grad():
             for p, u in zip(state.params, updates):

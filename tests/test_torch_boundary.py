@@ -166,6 +166,73 @@ def test_table_kernels_match_plain_on_card(card, kw, channels):
             1, 3, big)
 
 
+@pytest.mark.cuda
+def test_mesh_and_attention_kernels_on_card(card):
+    """B5 against its plain version and, merged, against B3; the attention
+    kernels against their plain versions at a ragged size; and what the new
+    wrappers refuse: a wrong dtype, a non-contiguous input, rows that do not
+    divide by the shard count (the full-size checks are chip_smoke.py's)."""
+    import numpy as np
+
+    from pf3plat_tpu_torch.models import layers
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, render, streamed
+    from pf3plat_tpu_torch.ops.rasterizer.project import make_camera, project_gaussians
+    from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh
+    from test_torch_helpers import make_scene_np
+
+    cfg = RasterizeConfig()
+    scene = {k: torch.as_tensor(v, device=card)
+             for k, v in make_scene_np(np.random.default_rng(0), n=2000, b=2).items()}
+    cam = make_camera(scene["extrinsics"], scene["intrinsics"], (64, 96))
+    screen = project_gaussians(cam, scene["means"], scene["covariances"], scene["opacities"],
+                               scene["sh"], 4, cfg)
+    args, _ = streamed.prepare_streamed(screen, (64, 96), scene["background"], cfg)
+    _, tfin, tchk = streamed.composite_fwd_cuda(**args)
+    rows = args["base"].shape[0]
+    g_tiles = torch.as_tensor(np.random.default_rng(1).standard_normal((rows, 3, 256)),
+                              dtype=torch.float32, device=card)
+    bwd = [args["featP"], args["base"], args["off"], args["counts"], args["tile_ids"],
+           streamed.n_processed(tchk), args["bg_rows"], tfin, tchk, g_tiles, args["tiles_x"], 3,
+           cfg]
+    blk, dbg = streamed.composite_bwd_blocks_cuda(*bwd)
+    ref_blk, ref_dbg = streamed.composite_bwd_blocks_plain(*bwd)
+    for k in range(9):
+        assert float((blk[:, :, k] - ref_blk[:, :, k]).abs().max()) \
+            <= 1e-4 * float(ref_blk[:, :, k].abs().max())
+    assert float((dbg - ref_dbg).abs().max()) <= 1e-4 * float(ref_dbg.abs().max())
+    dP, _ = streamed.composite_bwd_cuda(*bwd)
+    merged = streamed.merge_blocks(blk, args["base"], args["featP"].shape[1])
+    assert float((merged - dP).abs().max()) <= 1e-6 * float(dP.abs().max())
+    with pytest.raises(ValueError, match="float32"):
+        streamed.composite_bwd_blocks_cuda(args["featP"].double(), *bwd[1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        streamed.composite_bwd_blocks_cuda(*bwd[:9], g_tiles.transpose(1, 2).contiguous()
+                                           .transpose(1, 2), *bwd[10:])
+    ts = {k: v for k, v in scene.items()}
+    with pytest.raises(ValueError, match="tile rows not divisible by mesh size 5"):
+        render(**ts, image_shape=(64, 96), impl="streamed", config=cfg, device=card,
+               mesh=make_mesh(MeshCfg(data_axis=5, tile_axis=1), device=card))
+
+    rng = np.random.default_rng(2)
+    q, k, v, g = (torch.as_tensor(rng.standard_normal((2, 3, nn, 64)), dtype=torch.float32,
+                                  device=card).to(torch.bfloat16)
+                  for nn in (2049, 2305, 2305, 2049))
+    out, lse = layers.attention_fwd_cuda(q, k, v, 0.125)
+    ref_out, ref_lse = layers.attention_fwd_plain(q, k, v, 0.125)
+    assert float((out - ref_out).abs().max()) <= 1e-2 * float(ref_out.abs().max())
+    assert float((lse - ref_lse).abs().max()) <= 1e-3
+    grads = layers.attention_bwd_cuda(q, k, v, out, lse, g, 0.125)
+    for a, r in zip(grads, layers.attention_bwd_plain(q, k, v, out, lse, g, 0.125)):
+        assert float((a - r).abs().max()) <= 1e-2 * float(r.abs().max())
+    with pytest.raises(ValueError, match="bfloat16"):
+        layers.attention_fwd_cuda(q.float(), k, v, 0.125)
+    with pytest.raises(ValueError, match="contiguous"):
+        layers.attention_fwd_cuda(q, k.transpose(1, 2).contiguous().transpose(1, 2), v, 0.125)
+    with pytest.raises(ValueError, match="head dim"):
+        layers.attention_fwd_cuda(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                                  v[..., :48].contiguous(), 0.125)
+
+
 @pytest.mark.parametrize(
     "module,names",
     [
@@ -183,6 +250,12 @@ def test_table_kernels_match_plain_on_card(card, kw, channels):
         ("pf3plat_tpu_torch.training.metrics",
          ["compute_psnr", "compute_ssim", "pose_errors", "pose_auc"]),
         ("pf3plat_tpu_torch.geometry.transforms", ["geodesic_distance", "translation_angle"]),
+        ("pf3plat_tpu_torch.parallel",
+         ["MeshCfg", "make_mesh", "initialize_multihost", "shard_batch", "replicate",
+          "shard_train_step"]),
+        ("pf3plat_tpu_torch.ops.rasterizer.shard_local",
+         ["shard_pairs_budget", "composite_shard_local"]),
+        ("pf3plat_tpu_torch.entry", ["entry", "dryrun_multichip"]),
     ],
     ids=lambda x: x if isinstance(x, str) else "",
 )
@@ -196,7 +269,8 @@ def test_public_names_of_the_table_slice(module, names):
     assert not missing, f"{module} lacks {missing}"
     from pf3plat_tpu_torch.ops.rasterizer import kernels
 
-    for name in ("table_fwd", "table_bwd"):
+    for name in ("table_fwd", "table_bwd", "composite_bwd_blocks", "attention_fwd",
+                 "attention_bwd"):
         assert (kernels.CSRC / kernels.SOURCES[name]).is_file()
         assert name in kernels.LAUNCHES
 
