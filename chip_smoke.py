@@ -5,6 +5,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only (quick)
+    python3 chip_smoke.py --attention-ablations  # where the forward attention
+                                     # kernel's time goes (measurement builds)
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -17,9 +19,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
                views, 131,072 gaussians; fixed upstream gradients from numpy
                seeds 1 and 2); B5's merged blocks against B3's output;
      attn_fwd_*, attn_bwd_* - the attention kernels against their plain
-               versions at the pose-stack shape (9, 4, 4097, 32) and at the
-               frozen ViT's shape for 9 views (read from the model's
-               configuration), with SDPA on the same tensors as yardstick;
+               versions at the training step's shapes (pose stack (9, 4,
+               4097, 32), the same stacks without the pose token (9, 4, 2401,
+               32), the frozen ViT for 9 views, read from the model's
+               configuration) and, forward only, the serving request's (5
+               views), two runs bit-equal, with SDPA on the same tensors as
+               yardstick and the CTAs per SM the build reaches;
+     attn_sweep - both kernels against their plain versions at ragged sizes
+               (1 to 2,401 queries and keys around the tile sizes, n != m,
+               head dims 32 and 64);
   3. render_fwd_bwd - the bench scene through `render`, forward and
                backward with autograd, once per kernel backend (`streamed`,
                `pallas`): ms and Mrays/s (bench.py's definition), and the
@@ -125,9 +133,17 @@ TOL_B5_B3 = 1e-6
 # in another order, a fast exp. The log-sum-exp is f32 throughout.
 TOL_ATTN = 1e-2
 TOL_LSE = 1e-3
+# Least scale of a gradient's gate in the ragged-size sweep, as a share of
+# the largest value among dq, dk and dv of the same case.
+SWEEP_FLOOR = 1e-3
 # The pose and depth stacks' attention at the training batch (b * v = 9
 # views, 4 heads, 64 x 64 tokens + the pose token, head dim 32).
 ATTN_POSE_SHAPE = (9, 4, 4097, 4097, 32)
+# The same stacks' layers without the pose token (49 x 49 tokens).
+ATTN_DEPTH_SHAPE = (9, 4, 2401, 2401, 32)
+# Views of the serving request (b = 1): its attention shapes are the pose
+# stack's and the ViT's at this batch.
+SERVE_VIEWS = 5
 
 
 def emit(obj) -> None:
@@ -416,78 +432,185 @@ def check_b5(screen, image_shape, background, config, tag: str) -> dict:
     return row
 
 
-def check_attention(tag: str, b: int, h: int, n: int, m: int, d: int):
-    """The attention kernels vs their plain versions at (b, h, n | m, d):
-    q, k, v and the output's cotangent from numpy seeds 3-6, rounded to bf16
-    outside the timed region. Tolerance (bf16 products, sums in another
-    order): max|kernel - plain| <= TOL_ATTN * max|plain| per output, the
-    log-sum-exp within TOL_LSE. Library yardstick: SDPA on the same bf16
-    tensors. Bounds: 4 n m d b h operations forward, 10 n m d b h backward,
-    at the dense bf16 tensor-core peak. -> (forward row, backward row)."""
+def sm_clock_hz() -> float:
+    """The SM clock the exponential bound is reckoned at: the card's maximum
+    (`nvidia-smi --query-gpu=clocks.max.sm`, MHz)."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0].split()[0]) * 1e6
+
+
+def attention_inputs(b: int, h: int, n: int, m: int, d: int):
+    """q, k, v and the output's cotangent from numpy seeds 3-6, bf16 on the card."""
     import numpy as np
     import torch
-    import torch.nn.functional as F
-
-    from pf3plat_tpu_torch.models import layers
 
     def make(seed, tokens):
         x = np.random.default_rng(seed).standard_normal((b, h, tokens, d)).astype(np.float32)
         return torch.as_tensor(x, device="cuda").to(torch.bfloat16).contiguous()
 
-    q, k, v, g = make(3, n), make(4, m), make(5, m), make(6, n)
-    scale = d**-0.5
+    return make(3, n), make(4, m), make(5, m), make(6, n)
+
+
+def attention_errors(q, k, v, g, tag: str, floor: float = 0.0):
+    """Both attention kernels against their plain versions on these tensors;
+    raises outside the tolerances: max|kernel - plain| <= TOL_ATTN *
+    max|plain| per output (bf16 products, sums in another order; a gradient's
+    scale is at least `floor` times the three gradients' largest value), the
+    log-sum-exp within TOL_LSE. -> (out, lse, (dq, dk, dv), errors)."""
+    import torch
+
+    from pf3plat_tpu_torch.models import layers
+
+    scale = q.shape[-1] ** -0.5
     out, lse = layers.attention_fwd_cuda(q, k, v, scale)
     ref_out, ref_lse = layers.attention_fwd_plain(q, k, v, scale)
-    torch.cuda.synchronize()
-    e_out, e_lse = float((out - ref_out).abs().max()), float((lse - ref_lse).abs().max())
-    s_out = float(ref_out.abs().max())
-    if not (math.isfinite(e_out) and e_out <= TOL_ATTN * s_out and e_lse <= TOL_LSE):
-        raise AssertionError(f"attention fwd {tag}: out err {e_out} (> {TOL_ATTN} * {s_out}) "
-                             f"or lse err {e_lse} (> {TOL_LSE})")
-    del ref_out, ref_lse
     grads = layers.attention_bwd_cuda(q, k, v, out, lse, g, scale)
     ref_grads = layers.attention_bwd_plain(q, k, v, out, lse, g, scale)
     torch.cuda.synchronize()
-    errs = {}
-    for name, a, r in zip(("dq", "dk", "dv"), grads, ref_grads):
-        err, sc = float((a - r).abs().max()), float(r.abs().max())
+    errs = dict(lse=float((lse - ref_lse).abs().max()), out_max=float(ref_out.abs().max()))
+    if not errs["lse"] <= TOL_LSE:
+        raise AssertionError(f"attention {tag}: lse err {errs['lse']} > {TOL_LSE}")
+    grad_floor = floor * max(float(r.abs().max()) for r in ref_grads)
+    for name, a, r in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref_out, *ref_grads)):
+        err = float((a - r).abs().max())
+        sc = max(float(r.abs().max()), 0.0 if name == "out" else grad_floor)
         if not (math.isfinite(err) and err <= TOL_ATTN * sc):
-            raise AssertionError(f"attention bwd {tag}: {name} err {err} > {TOL_ATTN} * {sc}")
+            raise AssertionError(f"attention {tag}: {name} err {err} > {TOL_ATTN} * {sc}")
         errs[name] = err
-    del ref_grads, grads
+    return out, lse, grads, errs
+
+
+def check_attention(tag: str, b: int, h: int, n: int, m: int, d: int, backward: bool = True):
+    """The attention kernels vs their plain versions at (b, h, n | m, d), at
+    `attention_errors`' tolerances, two runs bit-equal, then timed. Library
+    yardstick: SDPA on the same bf16 tensors. Bounds: the larger of the bytes
+    (inputs read once, outputs written once), the tensor-core operations
+    (4 n m d b h forward, 10 n m d b h backward, at the dense bf16 peak) and
+    the n m b h exponentials at 16 per SM and clock (`exp_ms`).
+    -> (forward row, backward row); the backward is checked always and timed
+    if `backward`."""
+    import torch
+    import torch.nn.functional as F
+
+    from pf3plat_tpu_torch.models import layers
+
+    q, k, v, g = attention_inputs(b, h, n, m, d)
+    scale = d**-0.5
+    out, lse, grads, errs = attention_errors(q, k, v, g, tag)
+    again = (*layers.attention_fwd_cuda(q, k, v, scale),
+             *layers.attention_bwd_cuda(q, k, v, out, lse, g, scale))
+    if not all(torch.equal(a, r) for a, r in zip((out, lse, *grads), again)):
+        raise AssertionError(f"attention {tag}: two runs on the same inputs differ")
+    del grads, again
     torch.cuda.empty_cache()
 
     fwd_ms = cuda_ms(lambda: layers.attention_fwd_cuda(q, k, v, scale), 10)
-    bwd_ms = cuda_ms(lambda: layers.attention_bwd_cuda(q, k, v, out, lse, g, scale), 5)
     fwd_plain = cuda_ms(lambda: layers.attention_fwd_plain(q, k, v, scale), 2, warmup=1)
-    bwd_plain = cuda_ms(lambda: layers.attention_bwd_plain(q, k, v, out, lse, g, scale), 2,
-                        warmup=1)
     torch.cuda.empty_cache()
     lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
-    ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(ql, kl, vl)
-    lib_bwd = cuda_ms(
-        lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), 5)
     flops = 4.0 * n * m * d * b * h
     moved_f = (q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4
-    moved_b = ((2 * q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4
-               + (q.numel() + 2 * k.numel()) * 4)
+    occ = layers.attention_occupancy(d)
+    phases = [("attn_fwd", fwd_ms, fwd_plain, lib_fwd, flops, moved_f, errs["out"],
+               dict(err_lse=errs["lse"], out_max=errs["out_max"], ctas_per_sm=occ["fwd"]))]
+    if backward:
+        bwd_ms = cuda_ms(lambda: layers.attention_bwd_cuda(q, k, v, out, lse, g, scale), 5)
+        bwd_plain = cuda_ms(lambda: layers.attention_bwd_plain(q, k, v, out, lse, g, scale), 2,
+                            warmup=1)
+        torch.cuda.empty_cache()
+        ql, kl, vl = (x.clone().requires_grad_(True) for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl)
+        lib_bwd = cuda_ms(
+            lambda: torch.autograd.grad(lib_out, (ql, kl, vl), g, retain_graph=True), 5)
+        moved_b = ((2 * q.numel() + 2 * k.numel()) * 2 + out.numel() * 4 + lse.numel() * 4
+                   + (q.numel() + 2 * k.numel()) * 4)
+        phases.append(
+            ("attn_bwd", bwd_ms, bwd_plain, lib_bwd, 2.5 * flops, moved_b,
+             max(errs[x] for x in ("dq", "dk", "dv")),
+             dict(errs={x: errs[x] for x in ("dq", "dk", "dv")},
+                  library_fwd_bwd_ms=lib_fwd + lib_bwd,
+                  ctas_per_sm=[occ["bwd_dkdv"], occ["bwd_dq"]])))
     pk = peaks()
+    clock = sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_exp = float(n) * m * b * h / (16.0 * sms * clock) * 1e3
     rows = []
-    for phase, ms, plain_ms, lib, ops, moved, err, extra in (
-            ("attn_fwd", fwd_ms, fwd_plain, lib_fwd, flops, moved_f, e_out,
-             dict(err_lse=e_lse, out_max=s_out)),
-            ("attn_bwd", bwd_ms, bwd_plain, lib_bwd, 2.5 * flops, moved_b, max(errs.values()),
-             dict(errs=errs, library_fwd_bwd_ms=lib_fwd + lib_bwd))):
-        t_bytes, t_ops = moved / pk["bw"] * 1e3, ops / pk["bf16"] * 1e3
+    for phase, ms, plain_ms, lib, ops, moved, err, extra in phases:
+        bounds = {"bytes": moved / pk["bw"] * 1e3, "operations": ops / pk["bf16"] * 1e3,
+                  "exponentials": t_exp}
+        by = max(bounds, key=bounds.get)
         row = dict(phase=f"{phase}_{tag}", shape=[b, h, n, m, d], max_abs_err=err,
                    tol_rel=TOL_ATTN, ms=ms, plain_ms=plain_ms, library_ms=lib,
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="operations" if t_ops >= t_bytes else "bytes",
+                   bound_ms=bounds[by], bound_by=by, exp_ms=t_exp, sm_clock_mhz=clock / 1e6,
+                   sms=sms, bound_ms_without_exp=max(bounds["bytes"], bounds["operations"]),
                    tflops=ops / (ms * 1e-3) / 1e12, **extra)
         emit(row)
         rows.append(row)
     return rows
+
+
+def sweep_attention() -> dict:
+    """Both attention kernels against their plain versions at ragged sizes:
+    (b, h) = (2, 3), head dims 32 and 64, n and m around the 64-row tiles and
+    the 128-row CTAs, n != m included. With a single key every probability is
+    1 and dq and dk are exactly zero; kernel and plain version then both hold
+    rounding noise, so a gradient's gate never goes below SWEEP_FLOOR of the
+    largest of the three gradients (dv = sum of dO is of full size there)."""
+    sizes = (1, 63, 64, 65, 127, 128, 129, 257, 2401)
+    pairs = [(n, n) for n in sizes]
+    pairs += list(zip(sizes, sizes[1:] + sizes[:1])) + list(zip(sizes, sizes[4:] + sizes[:4]))
+    worst = dict(lse=0.0, out=0.0, dq=0.0, dk=0.0, dv=0.0)
+    for d in (32, 64):
+        for n, m in pairs:
+            q, k, v, g = attention_inputs(2, 3, n, m, d)
+            errs = attention_errors(q, k, v, g, f"sweep n={n} m={m} d={d}", SWEEP_FLOOR)[-1]
+            worst = {x: max(worst[x], errs[x]) for x in worst}
+    row = dict(phase="attn_sweep", cases=2 * len(pairs), pairs=pairs, tol_rel=TOL_ATTN,
+               tol_lse=TOL_LSE, floor=SWEEP_FLOOR, worst_abs_err=worst)
+    emit(row)
+    return row
+
+
+ATTENTION_ABLATIONS = ("full", "no softmax", "no ex2", "no copies in the loop",
+                       "no barrier in the loop", "no P V")
+
+
+def attention_ablations() -> dict:
+    """Where the forward attention kernel's time goes: measurement builds of
+    `csrc/attention_fwd.cu` that each leave one part out
+    (`PF3_ATTENTION_ABLATE` = 1..5; their results are wrong and are not
+    read), timed beside the full kernel at the pose-stack and the ViT shape
+    of the training step. What a part's absence saves is what it costs on
+    the critical path, not its share of a unit's work."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+
+    ct = kernels.ctypes
+    libs = kernels.build_variants(
+        "attention_fwd", [{"PF3_ATTENTION_ABLATE": i} for i in range(len(ATTENTION_ABLATIONS))])
+    vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], (256, 256))
+    times = {}
+    for tag, (b, h, n, m, d) in (("pose", ATTN_POSE_SHAPE), ("vit", vit_shape)):
+        q, k, v, _ = attention_inputs(b, h, n, m, d)
+        out = torch.empty((b, h, n, d), dtype=torch.float32, device="cuda")
+        lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
+        for name, lib in zip(ATTENTION_ABLATIONS, libs):
+            fn = lib.pf3_attention_fwd
+            fn.restype = ct.c_int
+            fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
+
+            def launch(fn=fn):
+                kernels.check("attention_fwd (measurement build)", fn(
+                    kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
+                    kernels.ptr(lse), b * h, n, m, d, d**-0.5, kernels.stream_ptr(q.device)))
+
+            times.setdefault(name, {})[tag] = cuda_ms(launch, 20)
+    row = dict(phase="attn_fwd_ablations", shapes=dict(pose=ATTN_POSE_SHAPE, vit=vit_shape),
+               ms=times)
+    emit(row)
+    return row
 
 
 def table_inputs(screen, image_shape, background, config) -> dict:
@@ -803,9 +926,10 @@ def capture_attention():
         layers.attention_fwd = forward
 
 
-def serve(impl: str = "streamed", n_requests: int = 3):
+def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset()):
     """The serving request through `DecoderCfg(impl=impl)` -> (the decoder's
-    captured inputs, launches, the last request's image on the CPU)."""
+    captured inputs, launches, the last request's image on the CPU). Fails
+    unless the request's attention ran at every one of `timed_shapes`."""
     import numpy as np
     import torch
 
@@ -869,6 +993,9 @@ def serve(impl: str = "streamed", n_requests: int = 3):
         if tuple(x.shape) != shape or not bool(torch.isfinite(x).all()):
             raise AssertionError(f"serve: {name} has shape {tuple(x.shape)} (want {shape}) "
                                  "or non-finite values")
+    if not set(timed_shapes) <= attn_shapes:
+        raise AssertionError(f"serve: attention shapes {sorted(attn_shapes)} lack some of "
+                             f"{sorted(timed_shapes)}")
     for name in FWD_KERNELS[impl] + MODEL_FWD_KERNELS:
         if launches[name] < n_requests:
             raise AssertionError(f"serve {impl}: kernel {name} launched {launches[name]} times "
@@ -1125,6 +1252,11 @@ def main(argv) -> int:
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
 
+    if "--attention-ablations" in argv:
+        attention_ablations()
+        print(smi, flush=True)
+        return 0
+
     config = PRODUCTION_CONFIG
     shape = (256, 256)
     scene = bench_scene("cuda")
@@ -1138,6 +1270,12 @@ def main(argv) -> int:
     attn_pose = check_attention("pose", *ATTN_POSE_SHAPE)
     vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], shape)
     attn_vit = check_attention("vit", *vit_shape)
+    check_attention("depth", *ATTN_DEPTH_SHAPE)
+    serve_shapes = {(SERVE_VIEWS, *ATTN_POSE_SHAPE[1:]),
+                    vit_attention_shape(model_config(), SERVE_VIEWS, shape)}
+    for tag, attn_shape in zip(("pose_serve", "vit_serve"), sorted(serve_shapes)):
+        check_attention(tag, *attn_shape, backward=False)
+    sweep_attention()
 
     if "--kernels" in argv:
         return 0
@@ -1149,7 +1287,7 @@ def main(argv) -> int:
 
     # Serving: the same request (same seeds, so the same gaussians) through
     # both decoders.
-    captured, serve_launches, image = serve("streamed")
+    captured, serve_launches, image = serve("streamed", timed_shapes=serve_shapes)
     torch.cuda.empty_cache()
     scene = render_scene(captured)
     screen = project(scene, shape, config)
@@ -1179,9 +1317,9 @@ def main(argv) -> int:
     captured, launches, _, attn_shapes = train("streamed")
     launches.update({k: launches_p[k] for k in TRAIN_KERNELS["pallas"]})
     # the attention kernels were timed at shapes the training step really uses
-    if not {ATTN_POSE_SHAPE, vit_shape} <= attn_shapes:
+    if not {ATTN_POSE_SHAPE, ATTN_DEPTH_SHAPE, vit_shape} <= attn_shapes:
         raise AssertionError(f"train: attention shapes {sorted(attn_shapes)} lack "
-                             f"{ATTN_POSE_SHAPE} or {vit_shape}")
+                             f"{ATTN_POSE_SHAPE}, {ATTN_DEPTH_SHAPE} or {vit_shape}")
     # The tables hold every candidate, the production streamed budget drops
     # some with random weights; with the exact expansion (budget factor 0)
     # the streamed backend composites the same pairs as the tables, so the
@@ -1234,8 +1372,13 @@ def main(argv) -> int:
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches[name], launches_serve=serve_launches.get(name, 0),
                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-                         bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+                         bound_ms=r["bound_ms"],
+                         # the SFU's exponentials are operations of the card too
+                         bound_by=r["bound_by"].replace("exponentials", "operations"),
                          library_ms=r["library_ms"]))
+        if "exp_ms" in r:
+            line[-1].update(bound_unit=r["bound_by"], exp_ms=r["exp_ms"],
+                            ctas_per_sm=r["ctas_per_sm"])
     line[-2].update(ms_vit=attn_vit[0]["ms"], library_ms_vit=attn_vit[0]["library_ms"],
                     bound_ms_vit=attn_vit[0]["bound_ms"])
     emit({"kernels": line})

@@ -5,152 +5,248 @@
 // head) without ever writing the (n, m) logits to device memory. q, k, v
 // arrive rounded to bf16; logits, the running maximum and the running sum
 // are f32; the probabilities are rounded to bf16 before the second product,
-// which accumulates in f32. The per-row log-sum-exp of the scaled logits is
-// saved for the backward. Any n and m: rows past the end of a tile are read
-// as zeros, key columns past m get probability 0, query rows past n are not
-// stored.
+// which accumulates in f32. The per-row log-sum-exp of the scaled logits
+// (natural log) is saved for the backward. Any n and m: rows past the end
+// are read as zeros, key columns past m get probability 0, query rows past
+// n are not stored.
 //
-// Bound on the card: operations, 4 n m d per (batch, head) on the tensor
-// cores (the bytes are q, k, v read once and out written once, far below).
-// Design: the simple FlashAttention-2 plan on `mma.sync` tiles. One CTA of 4
-// warps owns 64 query rows (16 a warp) and walks the keys in blocks of 64.
-// The query fragments stay in registers; each key block's K and V tiles are
-// staged in shared memory; S = Q K^T lands in C fragments, the online
-// softmax runs on them in registers (a row lives in one quad of lanes), and
-// the rounded probabilities are reused as the A fragments of P V
-// (attention_mma.cuh). No `wgmma`, TMA or pipelining yet: loads and
-// products of a block do not overlap.
+// Bound on the card: at head dim 32 the exponentials (n m per head on the
+// special-function units, 16 per SM and clock: 128 tensor-core operations
+// per exponential are not enough to hide them), at head dim 64 the 4 n m d
+// tensor-core operations and the exponentials about equally; the bytes
+// (q, k, v read once, out written once) are far below both.
+//
+// Design (attention_mma.cuh has the building blocks):
+//   * A CTA of two warpgroups owns 128 query rows; the query fragments are
+//     read once from device memory into registers.
+//   * K and V tiles of kKeys keys pass through a ring of kStages stages in
+//     dynamic shared memory, filled by `cp.async` 16-byte copies (zero fill
+//     past m) at the swizzled addresses the `wgmma` descriptors name. Two
+//     blocks' copies are in flight while a block is multiplied; one
+//     `__syncthreads()` a block both publishes the landed tile and frees
+//     the oldest stage. `cp.async` rather than TMA: the libraries are plain
+//     `nvcc -shared` objects that link the CUDA runtime only, a ragged end is one
+//     source-size operand, and at 2-4 copies a thread and block their
+//     cost is small beside the block's arithmetic.
+//   * S = Q K^T is one `wgmma.mma_async.m64n{kKeys}k16` chain per
+//     warpgroup with K as it lies (K-major B). The online softmax runs on
+//     the accumulator in registers: scale * log2(e) is folded into one
+//     fused multiply-add before `ex2` (2^(s c - max c)); the rounded
+//     probabilities are the register A operand of O += P V, which reads the
+//     V tile MN-major through the descriptor's transpose bit.
+//   * Within a warpgroup the tensor cores run ahead of the softmax: the
+//     logits of block i + 1 and then P V of block i are started together,
+//     the softmax of block i + 1 runs while P V of block i is still being
+//     multiplied, and the output sums are rescaled only once it is done
+//     (they are accumulators of the open `wgmma` group until then). 64-key
+//     tiles keep this at <= 128 registers, so two CTAs (four warpgroups)
+//     share an SM and fill each other's waits; 128-key tiles at one CTA an
+//     SM were slower on the H100.
 
 #include "attention_mma.cuh"
 
+// Measurement builds only (`chip_smoke.py --attention-ablations`): a value
+// other than 0 leaves one part of the kernel out, for timing what the rest
+// costs; the results of such a build are wrong. 1: no softmax, 2: no `ex2`,
+// 3: no copies inside the loop, 4: no barrier inside the loop, 5: no P V.
+#ifndef PF3_ATTENTION_ABLATE
+#define PF3_ATTENTION_ABLATE 0
+#endif
+
 namespace {
 
+constexpr int kAblate = PF3_ATTENTION_ABLATE;
+constexpr int kKeys = 64;   // keys of a tile
+constexpr int kStages = 4;  // tiles of the ring (>= 3: a block's K is read one block early)
+
 template <int D>
-__global__ void __launch_bounds__(kThreads) attention_fwd_kernel(
+constexpr int smem_bytes() {
+  return kStages * 2 * kKeys * D * 2 + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) attention_fwd_kernel(
     const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
     const uint16_t* __restrict__ v, float* __restrict__ out, float* __restrict__ lse, int n,
     int m, float scale) {
-  __shared__ Tile<D> s_q, s_k, s_v;
+  extern __shared__ uint8_t smem_raw[];
+  constexpr int kTileBytes = kKeys * D * 2;
+  static_assert(kStages >= 3, "a block's K is read one block before its V");
+  const uint32_t ring = aligned_smem(smem_raw);
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const int row0 = blockIdx.x * kCtaRows + warp * 16;  // this warp's 16 query rows
   q += (size_t)bh * n * D;
   k += (size_t)bh * m * D;
   v += (size_t)bh * m * D;
 
-  load_tile<D>(s_q, q, q0, n);
-  __syncthreads();
+  const int blocks = (m + kKeys - 1) / kKeys;
+  auto fetch = [&](int blk) {
+    if (blk < blocks) {
+      const uint32_t stage = ring + (blk % kStages) * 2 * kTileBytes;
+      load_tile_async<D, kKeys>(stage, k, blk * kKeys, m);
+      load_tile_async<D, kKeys>(stage + kTileBytes, v, blk * kKeys, m);
+    }
+    cp_async_commit();  // one group a block, empty past the end
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) fetch(s);
+
   uint32_t qf[D / 16][4];
+  load_a_global<D>(qf, q, row0, n, g, t);
+  float acc[D / 2];
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) load_a<D>(qf[ks], s_q, warp * 16, ks * 16, g, t);
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-  }
-  float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8 of the warp's 16
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.0f;
+  const float c = scale * kLog2e;
+  float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, unscaled logits
   float row_sum[2] = {0.0f, 0.0f};            // this lane's share of the row's sum
+  float s[kKeys / 2];           // a block's logits, then its probabilities
+  uint32_t pf[kKeys / 16][4];   // the probabilities rounded to bf16, as A fragments
+  float corr[2];                // what the latest maximum makes of the older sums
 
-  for (int k0 = 0; k0 < m; k0 += kTile) {
-    __syncthreads();  // the previous block's tiles are read
-    load_tile<D>(s_k, k, k0, m);
-    load_tile<D>(s_v, v, k0, m);
-    __syncthreads();
-
-    float s[kTile / 8][4];
+  // Online softmax of block blk on s: key columns past m (only in the last
+  // block) masked out, the row statistics updated, the probabilities left in
+  // s. A block always holds at least one real key, so the maximum is finite.
+  auto softmax = [&](int blk) {
+    const int k0 = blk * kKeys;
+    if (k0 + kKeys > m) {
 #pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) {
-        uint32_t b0, b1;
-        load_b_nt<D>(b0, b1, s_k, nt * 8, ks * 16, g, t);
-        mma_bf16(s[nt], qf[ks], b0, b1);
+      for (int i = 0; i < kKeys / 2; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        if (col >= m) s[i] = -INFINITY;
       }
     }
-
-    // scaled logits, key columns past m masked out
-#pragma unroll
-    for (int nt = 0; nt < kTile / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        s[nt][e] = col < m ? s[nt][e] * scale : -INFINITY;
-      }
-    }
-
-    // online softmax per row; a block always holds at least one real key,
-    // so the new maximum is finite
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) mx = fmaxf(mx, fmaxf(s[nt][2 * h], s[nt][2 * h + 1]));
-      mx = quad_max(mx);
-      const float new_max = fmaxf(row_max[h], mx);
-      const float corr = __expf(row_max[h] - new_max);
+      for (int j = 0; j < kKeys / 8; ++j) {
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+      }
+      const float new_max = fmaxf(row_max[h], quad_max(mx));
+      corr[h] = fast_exp2((row_max[h] - new_max) * c);
+      const float shift = new_max * c;
       float part = 0.0f;
 #pragma unroll
-      for (int nt = 0; nt < kTile / 8; ++nt) {
-        const float p0 = __expf(s[nt][2 * h] - new_max);
-        const float p1 = __expf(s[nt][2 * h + 1] - new_max);
-        s[nt][2 * h] = p0;
-        s[nt][2 * h + 1] = p1;
+      for (int j = 0; j < kKeys / 8; ++j) {
+        float p0 = fmaf(s[4 * j + 2 * h], c, -shift);
+        float p1 = fmaf(s[4 * j + 2 * h + 1], c, -shift);
+        if (kAblate != 2) {
+          p0 = fast_exp2(p0);
+          p1 = fast_exp2(p1);
+        }
+        s[4 * j + 2 * h] = p0;
+        s[4 * j + 2 * h + 1] = p1;
         part += p0 + p1;
       }
-      row_sum[h] = row_sum[h] * corr + part;
+      row_sum[h] = row_sum[h] * corr[h] + part;
       row_max[h] = new_max;
+    }
+  };
+  // acc follows the latest maximum; s becomes the next product's A operand
+  auto rescale_and_pack = [&]() {
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        acc[dt][2 * h] *= corr;
-        acc[dt][2 * h + 1] *= corr;
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[4 * j + 2 * h] *= corr[h];
+        acc[4 * j + 2 * h + 1] *= corr[h];
       }
     }
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks) acc_to_a(pf[ks], s + 8 * ks);
+  };
+  auto start_pv = [&](int blk) {
+    const uint64_t desc_v = tile_desc<D>(ring + (blk % kStages) * 2 * kTileBytes + kTileBytes);
+#pragma unroll
+    for (int ks = 0; ks < kKeys / 16; ++ks) {
+      wgmma_rs<1>(acc, pf[ks], desc_v + ks * ((16 * D * 2) >> 4), 1);
+    }
+    wgmma_commit();
+  };
+  auto start_logits = [&](int blk) {
+    const uint64_t desc_k = tile_desc<D>(ring + (blk % kStages) * 2 * kTileBytes);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks) wgmma_rs<0>(s, qf[ks], desc_k + ks * 2, ks > 0);
+    wgmma_commit();
+  };
 
-    // acc += P V, the probabilities rounded to bf16
-#pragma unroll
-    for (int ks = 0; ks < kTile / 16; ++ks) {
-      uint32_t pf[4];
-      c_to_a(pf, s[2 * ks], s[2 * ks + 1]);
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        uint32_t b0, b1;
-        load_b_nn<D>(b0, b1, s_v, ks * 16, dt * 8, g, t);
-        mma_bf16(acc[dt], pf, b0, b1);
-      }
-    }
+  cp_async_wait<kStages - 2>();  // this thread's copies of block 0 landed
+  fence_proxy_async();
+  __syncthreads();  // everyone's landed
+  wgmma_fence();
+  start_logits(0);
+  wgmma_wait<0>();
+  softmax(0);
+  rescale_and_pack();
+
+  for (int blk = 0; blk + 1 < blocks; ++blk) {
+    cp_async_wait<kStages - 3>();  // this thread's copies of block blk + 1 landed
+    fence_proxy_async();
+    if (kAblate != 4) __syncthreads();  // everyone's landed and done with block blk - 1
+    fetch(kAblate != 3 ? blk + kStages - 1 : blocks);
+    wgmma_fence();
+    start_logits(blk + 1);
+    if (kAblate != 5) start_pv(blk); else wgmma_commit();
+    wgmma_wait<1>();  // S of block blk + 1
+    if (kAblate != 1) softmax(blk + 1);
+    wgmma_wait<0>();  // P V of block blk
+    rescale_and_pack();
   }
+  wgmma_fence();
+  start_pv(blocks - 1);
+  wgmma_wait<0>();
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const float total = quad_sum(row_sum[h]);
-    const int row = q0 + warp * 16 + g + 8 * h;
+    const int row = row0 + g + 8 * h;
     if (row < n) {
       const float inv = 1.0f / total;
       float* dst = out + ((size_t)bh * n + row) * D;
 #pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        *reinterpret_cast<float2*>(dst + dt * 8 + 2 * t) =
-            make_float2(acc[dt][2 * h] * inv, acc[dt][2 * h + 1] * inv);
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<float2*>(dst + j * 8 + 2 * t) =
+            make_float2(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
       }
-      if (t == 0) lse[(size_t)bh * n + row] = row_max[h] + logf(total);
+      if (t == 0) lse[(size_t)bh * n + row] = row_max[h] * scale + logf(total);
     }
   }
+}
+
+// Allows the kernel its dynamic shared memory (above 48 KB at d = 64), once.
+template <int D>
+cudaError_t configure() {
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(attention_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes<D>());
+  return attr;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int n,
            int m, float scale, cudaStream_t s) {
-  const dim3 grid((n + kTile - 1) / kTile, bh);
-  attention_fwd_kernel<D><<<grid, kThreads, 0, s>>>(
+  if (configure<D>() != cudaSuccess) return (int)configure<D>();
+  const dim3 grid((n + kCtaRows - 1) / kCtaRows, bh);
+  attention_fwd_kernel<D><<<grid, kThreads, smem_bytes<D>(), s>>>(
       static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
       static_cast<const uint16_t*>(v), static_cast<float*>(out), static_cast<float*>(lse), n, m,
       scale);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int occupancy() {
+  int ctas = 0;
+  cudaError_t e = configure<D>();
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, attention_fwd_kernel<D>, kThreads,
+                                                      smem_bytes<D>());
+  }
+  return e == cudaSuccess ? ctas : -(int)e;
 }
 
 }  // namespace
@@ -165,5 +261,13 @@ extern "C" int pf3_attention_fwd(const void* q, const void* k, const void* v, vo
   if (bh <= 0 || n <= 0 || m <= 0) return -1;
   if (d == 32) return launch<32>(q, k, v, out, lse, bh, n, m, scale, s);
   if (d == 64) return launch<64>(q, k, v, out, lse, bh, n, m, scale, s);
+  return -1;
+}
+
+// CTAs of the forward kernel that fit one SM at head dim d (registers and
+// shared memory as built); negative on an error or an unknown head dim.
+extern "C" int pf3_attention_fwd_occupancy(int d) {
+  if (d == 32) return occupancy<32>();
+  if (d == 64) return occupancy<64>();
   return -1;
 }

@@ -168,6 +168,21 @@ def attention_bwd_cuda(q, k, v, out, lse, d_out, scale: float):
     return dq, dk, dv
 
 
+def attention_occupancy(d: int) -> dict[str, int]:
+    """CTAs per SM that the built attention kernels reach at head dim d
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`): the forward, the
+    backward's dk/dv pass and its dq pass. Needs the card."""
+    ct = kernels.ctypes
+    fwd = kernels.load("attention_fwd").pf3_attention_fwd_occupancy
+    bwd = kernels.load("attention_bwd").pf3_attention_bwd_occupancy
+    fwd.restype = bwd.restype = ct.c_int
+    fwd.argtypes, bwd.argtypes = [ct.c_int], [ct.c_int, ct.c_int]
+    got = {"fwd": fwd(d), "bwd_dkdv": bwd(d, 0), "bwd_dq": bwd(d, 1)}
+    if min(got.values()) < 0:
+        raise RuntimeError(f"attention kernels: occupancy query failed at head dim {d}: {got}")
+    return got
+
+
 def attention_fwd(q, k, v, scale: float):
     """The forward kernel for CUDA tensors, its plain version for CPU tensors."""
     fn = attention_fwd_plain if q.device.type == "cpu" else attention_fwd_cuda

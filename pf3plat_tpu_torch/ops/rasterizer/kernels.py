@@ -103,6 +103,32 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
 
 
+def build_variants(name: str, defines: list[dict]) -> list[ctypes.CDLL]:
+    """Measurement builds of kernel library `name`, one per dict of
+    preprocessor definitions (all compiled together): the ctypes handles, in
+    order. Not counted, not cached in `_LIBS`; the product path never calls
+    this."""
+    out_dir = _build_dir()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for defs in defines:
+        flags = [f"-D{k}={v}" for k, v in sorted(defs.items())]
+        tag = hashlib.sha256(" ".join(flags).encode()).hexdigest()[:8]
+        lib = out_dir / f"lib{name}.{tag}.so"
+        proc = None
+        if not lib.exists():
+            cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-o", str(lib), str(CSRC / SOURCES[name])]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)
+        procs.append((proc, lib))
+    for proc, lib in procs:
+        if proc is not None:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"kernel build failed: {name} {lib.name}:\n{log}")
+    return [ctypes.CDLL(str(lib)) for _, lib in procs]
+
+
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of kernel library `name`, building it if needed."""
     if name not in _LIBS:

@@ -51,6 +51,15 @@ def _qkv(seed, q_shape, kv_shape):
 SHAPES = {
     "self-2050x32": ((2, 4, 2050, 32), (2, 4, 2050, 32)),
     "cross-2049x2305x64": ((1, 2, 2049, 64), (1, 2, 2305, 64)),
+    # One below, at and one above a whole number of the kernels' 128-row CTAs
+    # (17 x 128 = 2176), against keys one past a whole number of 64-key
+    # tiles. Head dim 64: its scale 1/8 commutes with the bf16 rounding of q
+    # (JAX scales q before rounding it), which leaves these cases at <= 0.6e-2
+    # where standard-normal inputs at head dim 32 sit at 0.5-1.4e-2 of the
+    # largest value depending on the draw.
+    "cta-edge-2175x2049x64": ((1, 2, 2175, 64), (1, 2, 2049, 64)),
+    "cta-edge-2176x2049x64": ((1, 2, 2176, 64), (1, 2, 2049, 64)),
+    "cta-edge-2177x2049x64": ((1, 2, 2177, 64), (1, 2, 2049, 64)),
 }
 
 
@@ -92,6 +101,59 @@ def test_backward_plain_matches_autograd_of_forward_plain():
     np.testing.assert_allclose(n(lse), n(ref_lse), rtol=1e-6, atol=1e-6)
     for name, got, leaf in zip("qkv", grads, leaves):
         _close(n(got), n(leaf.grad), f"d{name}")
+
+
+@pytest.mark.parametrize("q_shape,kv_shape", [((2, 3, 129, 32), (2, 3, 257, 32)),
+                                              ((1, 2, 65, 64), (1, 2, 63, 64)),
+                                              ((1, 1, 1, 32), (1, 1, 2401, 32))],
+                         ids=["129x257x32", "65x63x64", "1x2401x32"])
+def test_plain_forward_lse_is_natural_log(q_shape, kv_shape):
+    """The interface between the forward and the backward: `lse` is the
+    NATURAL-log sum of exponentials of the scaled logits (max + ln(sum)),
+    whatever base the kernel's exponentials use inside. f32 sums in another
+    order: 1e-5."""
+    q, k, v, _ = _qkv(5, q_shape, kv_shape)
+    qb, kb, vb = (t(x).to(torch.bfloat16) for x in (q, k, v))
+    scale = q_shape[-1] ** -0.5
+    _, lse = layers.attention_fwd_plain(qb, kb, vb, scale)
+    logits = qb.double() @ kb.double().transpose(-1, -2) * scale
+    want = logits.max(dim=-1).values + torch.log(
+        torch.exp(logits - logits.max(dim=-1, keepdim=True).values).sum(dim=-1))
+    assert lse.shape == q_shape[:3] and lse.dtype == torch.float32
+    np.testing.assert_allclose(n(lse), n(torch.logsumexp(logits, dim=-1)), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(n(lse), n(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "q_shape,k_shape,match",
+    [((2, 3, 70, 32), (2, 3, 90, 32), None),
+     ((2, 3, 70, 64), (2, 3, 1, 64), None),
+     ((2, 3, 70, 48), (2, 3, 90, 48), "head dim 48"),
+     ((6, 70, 32), (6, 90, 32), "batch, heads, tokens, head_dim"),
+     ((256, 256, 8, 32), (256, 256, 8, 32), "grid's y dimension")],
+    ids=["d32", "d64-one-key", "d48", "3-d", "too-many-heads"])
+def test_kernel_argument_rules(q_shape, k_shape, match):
+    """What the wrappers accept before a launch: 4-D operands, a built head
+    dim, batch x heads within the grid's y dimension (the kernels index the
+    head by `blockIdx.y`); token counts are free."""
+    q, k = torch.empty(q_shape, device="meta"), torch.empty(k_shape, device="meta")
+    if match is None:
+        assert layers._attention_dims(q, k) == (*q_shape[:3], k_shape[2], q_shape[3])
+    else:
+        with pytest.raises(ValueError, match=match):
+            layers._attention_dims(q, k)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The kernel wrappers launch for CUDA tensors or raise: they never give
+    way to the plain version (only `attention_fwd` / `attention_bwd` pick it,
+    and only for tensors that lie on the CPU)."""
+    q = torch.zeros((1, 1, 8, 32), dtype=torch.bfloat16)
+    out, lse = torch.zeros((1, 1, 8, 32)), torch.zeros((1, 1, 8))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        layers.attention_fwd_cuda(q, q, q, 1.0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        layers.attention_bwd_cuda(q, q, q, out, lse, q, 1.0)
 
 
 def test_head_dim_is_zero_padded_and_output_dtype_kept():
