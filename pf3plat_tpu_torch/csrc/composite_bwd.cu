@@ -3,8 +3,8 @@
 // Replaces the TPU kernel `pf3plat_tpu/ops/rasterizer/streamed.py:
 // _streamed_bwd_rmw_kernel` (+ `_bwd_rmw_one_tile`, `_bwd_chunk_grads`):
 // per tile row, the per-pair gradients of [x, y, ca, cb, cc, op, c0..c2]
-// in sorted order, plus d(background) per tile. The arithmetic and the
-// block's plan are in composite_bwd_walk.cuh, shared with kernel B5.
+// in sorted order, plus d(background) per tile. The walk, its arithmetic
+// and its launch are in composite_bwd_walk.cuh, shared with kernel B5.
 //
 // The TPU kernel read-modify-writes each 128-row window because adjacent
 // tiles' windows overlap. Here each sorted row belongs to exactly one tile
@@ -12,58 +12,45 @@
 // window, once, and leaves every other row to the caller's zero fill:
 // deterministic, no atomics.
 //
-// Bound on the card: operations. Per (pixel, in-segment pair) evaluation
-// the forward sweep repeats B2's ~23 operations (2 SFU: exp, log1p, exp)
-// and the reverse sweep ~59 more (one exp, one division, the 9 partials and
-// their share of the warp reductions): ~82 in all.
+// Bound on the card: operations, ~82 per (pixel, in-segment pair)
+// evaluation as first counted (B2's alpha and T recurrence, then the
+// gradients); instruction rate and latency hold the walk below that. The
+// design (composite_bwd_walk.cuh): no per-(pair, pixel) T store (a replay from
+// 8-pair sub-block checkpoints), 68,096 bytes of shared memory at chunk
+// 128 and >= 3 CTAs of 8 warps an SM, no log1p, exponential, gradient or
+// shuffle for an evaluation whose alpha is 0, and 12 shuffles instead of
+// 45 for a pair's 9 sums over a warp. Tiles of up to 1024 pixels are
+// walked in parts of at most 256.
 
 #include "composite_bwd_walk.cuh"
 
-namespace {
-
-__global__ void composite_bwd_kernel(
-    const float* __restrict__ feat, long long plane,
-    const int32_t* __restrict__ base, const int32_t* __restrict__ off,
-    const int32_t* __restrict__ count, const int32_t* __restrict__ tile_ids,
-    const int32_t* __restrict__ nproc, const float* __restrict__ bg,
-    const float* __restrict__ tfin, const float* __restrict__ tchk,
-    const float* __restrict__ gimg, int channels, int tiles_x, int ts, int chunk,
-    int n_chunks, float alpha_clamp, float alpha_min, float one_minus_clamp,
-    float t_min, float* __restrict__ dP, float* __restrict__ dbg) {
-  composite_bwd_row<false>(feat, plane, base, off, count, tile_ids, nproc, bg, tfin, tchk,
-                           gimg, channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
-                           alpha_min, one_minus_clamp, t_min, dP, dbg);
-}
-
-}  // namespace
-
-// feat (9, plane) f32; base/off/count/tile_ids/nproc (rows,) i32;
-// bg (rows, ch), tfin (rows, ts*ts), tchk (rows, n_chunks, ts*ts),
-// gimg (rows, ch, ts*ts) f32; outputs dP (9, plane) f32, zero-filled by the
-// caller (only rows inside a tile segment are written), and dbg (rows, ch).
+// feat (9, plane) f32; base/off/count/tile_ids/nproc (rows,) i32; order
+// (rows,) i32, the tile row of each CTA; bg (rows, ch), tfin (rows, ts*ts),
+// tchk (rows, n_chunks, ts*ts), gimg (rows, ch, ts*ts) f32; outputs dP (9,
+// plane) f32, zero-filled by the caller (only rows inside a tile segment
+// are written), and dbg (rows, ch).
 extern "C" int pf3_composite_bwd(const void* feat, long long plane, const void* base,
                                  const void* off, const void* count, const void* tile_ids,
-                                 const void* nproc, const void* bg, const void* tfin,
-                                 const void* tchk, const void* gimg, int rows, int channels,
-                                 int tiles_x, int ts, int chunk, int n_chunks,
+                                 const void* nproc, const void* order, const void* bg,
+                                 const void* tfin, const void* tchk, const void* gimg, int rows,
+                                 int channels, int tiles_x, int ts, int chunk, int n_chunks,
                                  float alpha_clamp, float alpha_min, float one_minus_clamp,
                                  float t_min, void* dP, void* dbg, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = composite_bwd_smem(ts, chunk);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        composite_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  if (rows > 0) {
-    composite_bwd_kernel<<<rows, ts * ts, smem, s>>>(
-        static_cast<const float*>(feat), plane, static_cast<const int32_t*>(base),
-        static_cast<const int32_t*>(off), static_cast<const int32_t*>(count),
-        static_cast<const int32_t*>(tile_ids), static_cast<const int32_t*>(nproc),
-        static_cast<const float*>(bg), static_cast<const float*>(tfin),
-        static_cast<const float*>(tchk), static_cast<const float*>(gimg), channels, tiles_x,
-        ts, chunk, n_chunks, alpha_clamp, alpha_min, one_minus_clamp, t_min,
-        static_cast<float*>(dP), static_cast<float*>(dbg));
-  }
-  return (int)cudaGetLastError();
+  return composite_bwd_launch<false>(feat, plane, base, off, count, tile_ids, nproc, order, bg,
+                                     tfin, tchk, gimg, rows, channels, tiles_x, ts, chunk,
+                                     n_chunks, alpha_clamp, alpha_min, one_minus_clamp, t_min,
+                                     dP, dbg, stream);
 }
+
+// Shared memory of one CTA (bytes) at this tile size and chunk.
+extern "C" long long pf3_composite_bwd_smem(int ts, int chunk) {
+  return (long long)composite_bwd_smem(ts, chunk);
+}
+
+// CTAs that fit one SM; negative on an error.
+extern "C" int pf3_composite_bwd_occupancy(int ts, int chunk) {
+  return composite_bwd_occupancy<false>(ts, chunk);
+}
+
+// Pairs per sub-block of the walk (kSub), shared with kernel B5.
+extern "C" int pf3_composite_bwd_sub_block() { return kSub; }

@@ -1,14 +1,17 @@
-// Reverse walk of one tile row of the streamed compositor: the two sweeps
-// shared by kernels B3 (composite_bwd.cu) and B5 (composite_bwd_blocks.cu).
+// Reverse walk of one tile row of the streamed compositor, shared by kernels
+// B3 (composite_bwd.cu) and B5 (composite_bwd_blocks.cu): the device
+// function, the kernel, its launch, its shared memory and its occupancy.
 //
 // Per tile row it replays, in reverse, the chunks the forward (B2)
 // processed (`nproc`, from the checkpoints) and forms the per-pair
 // gradients of [x, y, ca, cb, cc, op, c0..c2], plus d(background) per
-// tile. Semantics of the TPU kernels' `_bwd_chunk_grads`:
+// tile. Semantics of the TPU kernels' `_bwd_chunk_grads`
+// (pf3plat_tpu/ops/rasterizer/streamed.py:523):
 //   * gt = sum_c bg_c g_c; dbg = sum_pixels g tfin; tail starts at tfin gt;
 //   * chunk i starts from its checkpoint tchk[i]; alpha, T_after, alive and
 //     one_m = max(1 - alpha, 1 - alpha_clamp) are B2's own (same helper,
-//     composite_alpha.cuh), t_before = T_after / one_m;
+//     composite_alpha.cuh, same left-to-right log1p sum), t_before =
+//     T_after / one_m;
 //   * wgt = alive ? t_before alpha : 0, cg = sum_c color_c g_c, m = wgt cg;
 //     suffix = (sum of m over the chunk's LATER pairs) + tail;
 //   * dalpha = alive ? t_before cg - suffix / one_m : 0, zeroed unless the
@@ -18,13 +21,50 @@
 //     d_x0 = (ca dx + cb dy) dpow, d_y0 = (cc dy + cb dx) dpow,
 //     d_col = g wgt; then tail += sum_pairs m.
 //
-// One CTA of tile_size^2 threads per tile row, one thread per pixel. Per
-// chunk the 9 x chunk features are staged in shared memory; each thread
-// runs the forward sweep and keeps T_after per (pair, pixel) in shared
-// memory (chunk x 256 x 4 B = 128 KB, 0 once dead); the reverse sweep forms
-// the per-pixel partials, each warp reduces a pair's 9 partials with
-// shuffles into [warp][chunk][9] shared memory, and after one barrier the
-// warps' partials are summed in fixed order and each value is written once.
+// What bounds it on the card: instruction rate and latency, not bytes.
+// Every (pixel, in-segment pair) evaluation needs B2's alpha; where the pair touches the
+// pixel (a few percent of evaluations on the bench scene) also a log1p, an
+// exponential, ~35 operations of gradient and its share of the 9 sums over
+// the tile's pixels. The first design kept T_after of every (pair, pixel)
+// of a chunk in shared memory (128 KB: one CTA of 8 warps an SM, nothing
+// hid the serial sweeps' latency), walked every pair for every pixel and
+// reduced each pair with 9 x 5 shuffles a warp. This design:
+//   * One CTA of at most 256 threads per tile row, one pixel a thread, >= 3
+//     CTAs an SM (__launch_bounds__(256, 3), <= 80 registers; 68,096 bytes
+//     of shared memory at chunk 128 and 16 x 16 tiles, composite_bwd_smem).
+//     A larger tile (up to 1024 pixels) is walked in equal parts of at most
+//     256 pixels (composite_bwd_threads), each part's per-pixel state kept
+//     in shared memory between chunks. The wrapper starts the rows heaviest
+//     first (`order`).
+//   * Staging: the next chunk's 9 feature rows are copied with cp.async
+//     while the current one is walked, then laid out pair-major as three
+//     float4 per pair (x, y, ca, cb | cc, op, thr, c0 | c1, c2), read back
+//     as broadcast 16-byte loads. thr = log(alpha_min / op) less a margin:
+//     a pair whose power (composite_alpha.cuh's own rounding) is below it
+//     has alpha < alpha_min for certain and is skipped without B2's
+//     exponential; pair_alpha decides every other pair.
+//   * A pair contributes to a pixel iff it is alive and alpha != 0 or it is
+//     unclamped. One that does not adds log1p(-0) = -0 to the log sum,
+//     which leaves it unchanged bit for bit, and nothing to any gradient.
+//   * Forward sweep, per sub-block of kSub = 8 pairs: the 8 power tests
+//     (independent), then B2's recurrence over the candidates that pass, to
+//     the first dead pair. No per-(pair, pixel) T store: per pixel and
+//     sub-block it keeps the log sum at the sub-block's start and a bit mask
+//     of the contributing pairs (16 + 4 KB of shared memory).
+//   * Reverse sweep, sub-blocks last first, over the active steps only (the
+//     pairs that contribute to some pixel of the warp): the replay adds the
+//     same log1p terms in the same order from the sub-block's checkpoint
+//     (T_after = t0 exp(incl) bit-equal to the forward sweep's and B2's),
+//     then the gradients, last first, with one reciprocal of one_m per
+//     evaluation instead of two divisions. Inactive pairs' partials are
+//     zeros and cost no shuffle.
+//   * A step's 9 partials are summed over the warp by a transposing
+//     butterfly (warp_sum9): each of 5 steps halves the values a lane holds
+//     and doubles the lanes they cover, 5 + 3 + 2 + 1 + 1 = 12 shuffles
+//     instead of 9 x 5.
+//   * After one barrier the warps' partials are summed in fixed warp order
+//     and each value is written once. Every sum has a fixed order: two runs
+//     are bit-equal, and B5's blocks hold B3's values bit for bit.
 //
 // The two kernels differ only in where the sums go (`kBlocks`):
 //   * false (B3): row j of chunk i goes to out[k * plane + window + j], for
@@ -33,25 +73,165 @@
 //     out[((r * n_chunks + i) * 9 + k) * chunk + j], exact zeros outside
 //     the segment, and every block of a chunk that is not walked is
 //     written as zeros, so the caller need not clear the output.
+//
+// PF3_BWD_ABLATE (measurement builds only, `chip_smoke.py --bwd-ablations`;
+// their results are wrong): 1 no replay, 2 no shuffles, 3 no reciprocal,
+// 4 no feature copies after the first chunk (later chunks walk stale
+// features, so the work changes too), 5 no reverse sweep.
 
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "composite_alpha.cuh"
 
-constexpr int kFeat = 9;  // x, y, ca, cb, cc, op, c0, c1, c2
+#ifndef PF3_BWD_ABLATE
+#define PF3_BWD_ABLATE 0
+#endif
+
+constexpr int kFeat = 9;         // x, y, ca, cb, cc, op, c0, c1, c2
+constexpr int kSub = 8;          // pairs per sub-block of the replay
+constexpr int kMaxThreads = 256;  // threads of a CTA, one pixel each
+constexpr int kMaxPixels = 1024;  // pixels of a tile
+constexpr int kMinCtas = 3;      // CTAs an SM the build is held to
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   return v;
 }
 
+// One butterfly step: the low lanes (bit `offset` clear) keep the first
+// ceil(N/2) values, the high lanes the rest (and a zero), each adding its
+// partner's copy of what it keeps.
+template <int N>
+__device__ __forceinline__ void halve(const float (&in)[N], float (&out)[(N + 1) / 2],
+                                      int offset, bool hi) {
+  constexpr int L = (N + 1) / 2;
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const float lo_v = in[k];
+    const float hi_v = k + L < N ? in[k + L] : 0.0f;
+    out[k] = (hi ? hi_v : lo_v) + __shfl_xor_sync(0xffffffffu, hi ? lo_v : hi_v, offset);
+  }
+}
+
+// The 9 values summed over the warp; lane `sum9_index(lane)` >= 0 holds the
+// sum of v[sum9_index(lane)] (each index on one even lane).
+__device__ __forceinline__ float warp_sum9(const float (&v)[kFeat], int lane) {
+  float w[5], u[3], t[2], s[1];
+  halve<9>(v, w, 16, lane & 16);
+  halve<5>(w, u, 8, lane & 8);
+  halve<3>(u, t, 4, lane & 4);
+  halve<2>(t, s, 2, lane & 2);
+  return s[0] + __shfl_xor_sync(0xffffffffu, s[0], 1);
+}
+
+__device__ __forceinline__ int sum9_index(int lane) {
+  int base = 0, valid = kFeat, n = kFeat;
+  for (int o = 16; o >= 2; o >>= 1) {
+    const int low = (n + 1) / 2;
+    if (lane & o) {
+      base += low;
+      valid -= low;
+    } else {
+      valid = min(valid, low);
+    }
+    n = low;
+  }
+  return valid > 0 && !(lane & 1) ? base : -1;
+}
+
+// pair_alpha's power, with its rounding (explicit round-to-nearest).
+__device__ __forceinline__ float pair_power(float px, float py, float4 a, float cc) {
+  const float dx = __fsub_rn(px, a.x);
+  const float dy = __fsub_rn(py, a.y);
+  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(a.z, dx), dx),
+                               __fmul_rn(__fmul_rn(cc, dy), dy));
+  return __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(a.w, dx), dy));
+}
+
+// Power below which op * exp(power) < alpha_min for certain (0.01 below
+// the exact bound in the log, far above the rounding of exp and log):
+// +inf where op <= 0 can never reach alpha_min > 0, -inf (skip nothing)
+// where the bound is not finite (alpha_min <= 0, op NaN or infinite).
+__device__ __forceinline__ float skip_below(float op, float alpha_min) {
+  if (!(alpha_min > 0.0f)) return -CUDART_INF_F;
+  if (op <= 0.0f) return CUDART_INF_F;
+  if (!(op <= 3.0e38f)) return -CUDART_INF_F;
+  return logf(alpha_min / op) - 0.01f;
+}
+
+// Threads of a CTA for a tile of p pixels (a multiple of 32): p itself up
+// to kMaxThreads, else the largest multiple of 32 that divides p and is at
+// most kMaxThreads; the CTA walks the tile in p / threads parts.
+inline int composite_bwd_threads(int p) {
+  int t = p < kMaxThreads ? p : kMaxThreads;
+  while (t > 32 && p % t != 0) t -= 32;
+  return t;
+}
+
+// Shared memory of one CTA, bytes: features (pair-major, padded to whole
+// sub-blocks, and the next chunk's rows in flight), sub-block log sums, the
+// warps' partials, the tile's tails where it is walked in parts, and the
+// sub-block masks. The wrappers read it through pf3_*_smem.
 inline size_t composite_bwd_smem(int ts, int chunk) {
   const int p = ts * ts;
-  return sizeof(float) * ((size_t)kFeat * chunk + (size_t)chunk * p +
-                          (size_t)(p / 32) * chunk * kFeat);
+  const size_t nt = composite_bwd_threads(p);
+  const size_t n_sub = (chunk + kSub - 1) / kSub;
+  return 3 * sizeof(float4) * n_sub * kSub + sizeof(float) * kFeat * chunk +
+         (sizeof(float) + sizeof(uint8_t)) * n_sub * nt +
+         sizeof(float) * (nt / 32) * chunk * kFeat +
+         (nt < (size_t)p ? sizeof(float) * p : 0);
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+// Start copying the 9 x chunk feature rows of the window at g0 into s_raw
+// (feature-major); cp.async.wait_all and a barrier make them visible.
+__device__ __forceinline__ void fetch_chunk(float* s_raw, const float* __restrict__ feat,
+                                            long long plane, long long g0, int chunk) {
+  for (int k = threadIdx.x; k < kFeat * chunk; k += blockDim.x) {
+    const int f = k / chunk;
+    cp_async4(s_raw + k, feat + f * plane + g0 + (k - f * chunk));
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Bits lo..hi-1 of a sub-block's mask.
+__device__ __forceinline__ uint32_t span_bits(int lo, int hi) {
+  return (hi >= kSub ? (1u << kSub) - 1u : (1u << max(hi, 0)) - 1u) & ~((1u << max(lo, 0)) - 1u);
+}
+
+// A thread's pixel in part `part` of its tile (tile origin x0, y0) and the
+// upstream gradient there (gimg: the row's (ch, p) image; zeros beyond
+// `channels`).
+struct WalkPixel {
+  int pix;
+  float x, y;
+  float g[3];
+};
+
+__device__ __forceinline__ WalkPixel walk_pixel(int part, int nt, int ts, int x0, int y0,
+                                                const float* __restrict__ gimg, int p,
+                                                int channels) {
+  WalkPixel w;
+  w.pix = part * nt + threadIdx.x;
+  w.x = (float)(x0 + w.pix % ts) + 0.5f;
+  w.y = (float)(y0 + w.pix / ts) + 0.5f;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) w.g[c] = c < channels ? gimg[(long long)c * p + w.pix] : 0.0f;
+  return w;
+}
+
+// A warp's partial of one (pair, feature): the first part of the tile sets
+// it, a later part adds to it.
+__device__ __forceinline__ void put_partial(float* dst, float v, bool first) {
+  *dst = first ? v : *dst + v;
 }
 
 template <bool kBlocks>
@@ -59,42 +239,64 @@ __device__ __forceinline__ void composite_bwd_row(
     const float* __restrict__ feat, long long plane,
     const int32_t* __restrict__ base, const int32_t* __restrict__ off,
     const int32_t* __restrict__ count, const int32_t* __restrict__ tile_ids,
-    const int32_t* __restrict__ nproc, const float* __restrict__ bg,
-    const float* __restrict__ tfin, const float* __restrict__ tchk,
-    const float* __restrict__ gimg, int channels, int tiles_x, int ts, int chunk,
-    int n_chunks, float alpha_clamp, float alpha_min, float one_minus_clamp,
-    float t_min, float* __restrict__ out, float* __restrict__ dbg) {
-  extern __shared__ float sm[];
+    const int32_t* __restrict__ nproc, const int32_t* __restrict__ order,
+    const float* __restrict__ bg, const float* __restrict__ tfin,
+    const float* __restrict__ tchk, const float* __restrict__ gimg, int channels,
+    int tiles_x, int ts, int chunk, int n_chunks, float alpha_clamp, float alpha_min,
+    float one_minus_clamp, float t_min, float* __restrict__ out, float* __restrict__ dbg) {
+  extern __shared__ float4 sm4[];
   const int p = ts * ts;
-  const int n_warps = p / 32;
-  float* s_feat = sm;                     // kFeat * chunk
-  float* s_t = s_feat + kFeat * chunk;    // chunk * p: T_after, 0 once dead
-  float* s_red = s_t + chunk * p;         // n_warps * chunk * kFeat
-  const int r = blockIdx.x;
+  const int nt = blockDim.x;  // pixels of a part
+  const int n_parts = p / nt;
+  const int n_warps = nt / 32;
+  const int n_sub = (chunk + kSub - 1) / kSub;
+  const int n_pad = n_sub * kSub;
+  float4* s_feat = sm4;                                          // 3 * n_pad
+  float* s_raw = reinterpret_cast<float*>(s_feat + 3 * n_pad);   // kFeat * chunk
+  float* s_ck = s_raw + kFeat * chunk;                           // n_sub * nt
+  float* s_red = s_ck + n_sub * nt;                              // n_warps * chunk * kFeat
+  float* s_tail = s_red + n_warps * chunk * kFeat;               // p, if n_parts > 1
+  uint8_t* s_mask = reinterpret_cast<uint8_t*>(s_tail + (n_parts > 1 ? p : 0));  // n_sub * nt
+  const int r = order[blockIdx.x];
   const int l = threadIdx.x;
   const int warp = l >> 5;
   const int lane = l & 31;
+  const int red_k = sum9_index(lane);
   const int t_img = tile_ids[r];
-  const int tx = t_img % tiles_x;
-  const int ty = t_img / tiles_x;
-  const float px = (float)(tx * ts + l % ts) + 0.5f;
-  const float py = (float)(ty * ts + l / ts) + 0.5f;
+  const int x0 = (t_img % tiles_x) * ts;
+  const int y0 = (t_img / tiles_x) * ts;
   const int seg_lo = off[r];
   const int seg_hi = seg_lo + count[r];
   const long long w0 = (long long)base[r] * chunk;
 
-  float g[3] = {0.0f, 0.0f, 0.0f};
-  float gt = 0.0f;
-  for (int c = 0; c < channels; ++c) {
-    g[c] = gimg[((long long)r * channels + c) * p + l];
-    gt += bg[r * channels + c] * g[c];
-  }
-  const float tf = tfin[(long long)r * p + l];
-  float tail = tf * gt;
+  // This thread's pixel in the current part, and its upstream gradient.
+  const float* g_row = gimg + (long long)r * channels * p;
+  WalkPixel pixel = walk_pixel(0, nt, ts, x0, y0, g_row, p, channels);
 
-  for (int c = 0; c < channels; ++c) {
-    const float v = warp_sum(g[c] * tf);
-    if (lane == 0) s_red[warp * 3 + c] = v;
+  // tail = tfin gt per pixel; d(bg) = sum over pixels of g tfin, each warp
+  // over its parts in order, then the warps in order.
+  float tail = 0.0f;
+  float dsum[3] = {0.0f, 0.0f, 0.0f};
+  for (int part = 0; part < n_parts; ++part) {
+    if (part > 0) pixel = walk_pixel(part, nt, ts, x0, y0, g_row, p, channels);
+    float gt = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < channels) gt += bg[r * channels + c] * pixel.g[c];
+    }
+    const float tf = tfin[(long long)r * p + pixel.pix];
+    tail = tf * gt;
+    if (n_parts > 1) s_tail[pixel.pix] = tail;
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < channels) dsum[c] += warp_sum(pixel.g[c] * tf);
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      if (c < channels) s_red[warp * 3 + c] = dsum[c];
+    }
   }
   __syncthreads();
   if (l < channels) {
@@ -114,76 +316,178 @@ __device__ __forceinline__ void composite_bwd_row(
     for (int q = l; q < head; q += blockDim.x) row_out[q] = 0.0f;
     for (int q = max(i_top, 0) * blk + l; q < n_chunks * blk; q += blockDim.x) row_out[q] = 0.0f;
   }
+  float* w_red = s_red + warp * chunk * kFeat;  // this warp's partials
+  if (i_top - 1 >= i_min) {
+    fetch_chunk(s_raw, feat, plane, w0 + (long long)(i_top - 1) * chunk, chunk);
+  }
   for (int i = i_top - 1; i >= i_min; --i) {
-    __syncthreads();  // the previous chunk's features and partials are read
     const long long g0 = w0 + (long long)i * chunk;
-    for (int k = l; k < kFeat * chunk; k += blockDim.x) {
-      const int f = k / chunk;
-      const int j = k - f * chunk;
-      s_feat[k] = feat[f * plane + g0 + j];
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // chunk i's rows are in; the previous chunk's are read
+    for (int q = l; q < n_pad; q += blockDim.x) {
+      if (q < chunk) {
+        const float op = s_raw[5 * chunk + q];
+        s_feat[3 * q] = make_float4(s_raw[q], s_raw[chunk + q], s_raw[2 * chunk + q],
+                                    s_raw[3 * chunk + q]);
+        s_feat[3 * q + 1] = make_float4(s_raw[4 * chunk + q], op, skip_below(op, alpha_min),
+                                        s_raw[6 * chunk + q]);
+        s_feat[3 * q + 2] = make_float4(channels > 1 ? s_raw[7 * chunk + q] : 0.0f,
+                                        channels > 2 ? s_raw[8 * chunk + q] : 0.0f, 0.0f, 0.0f);
+      } else {  // padding of the last sub-block: outside every segment
+        const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        s_feat[3 * q] = z;
+        s_feat[3 * q + 1] = z;
+        s_feat[3 * q + 2] = z;
+      }
     }
-    __syncthreads();
+    __syncthreads();  // features staged; s_raw is free
+#if PF3_BWD_ABLATE != 4
+    // The next chunk's rows arrive while this one is walked.
+    if (i - 1 >= i_min) fetch_chunk(s_raw, feat, plane, g0 - chunk, chunk);
+#endif
     const int j_lo = max(seg_lo - i * chunk, 0);
     const int j_hi = min(seg_hi - i * chunk, chunk);
+    const int sb_lo = j_lo / kSub;
+    const int sb_hi = (j_hi + kSub - 1) / kSub;
 
-    // Forward sweep: B2's recurrence from the chunk's checkpoint.
-    const float t0 = tchk[((long long)r * n_chunks + i) * p + l];
-    float incl = 0.0f;
-    bool dead = false;
-    for (int j = j_lo; j < j_hi; ++j) {
-      float t_after = 0.0f;
-      if (!dead) {
-        const float alpha = pair_alpha(px, py, s_feat[j], s_feat[chunk + j],
-                                       s_feat[2 * chunk + j], s_feat[3 * chunk + j],
-                                       s_feat[4 * chunk + j], s_feat[5 * chunk + j],
-                                       alpha_clamp, alpha_min).alpha;
-        incl += log1pf(-alpha);
-        t_after = t0 * expf(incl);
-        if (!(t_after >= t_min)) {  // every later pair of the chunk is dead
-          dead = true;
-          t_after = 0.0f;
+    for (int part = 0; part < n_parts; ++part) {
+      const bool first = part == 0;
+      if (n_parts > 1) {
+        pixel = walk_pixel(part, nt, ts, x0, y0, g_row, p, channels);
+        tail = s_tail[pixel.pix];
+      }
+      const float t0 = tchk[((long long)r * n_chunks + i) * p + pixel.pix];
+
+      // Forward sweep: B2's recurrence over the contributing pairs, to the
+      // first dead pair; per sub-block the log sum at its start and the
+      // mask. The power tests of a sub-block's pairs are independent (ILP);
+      // the candidates that pass go through pair_alpha one by one.
+      float incl = 0.0f;
+      bool live = true;
+      for (int sb = sb_lo; sb < sb_hi; ++sb) {
+        uint32_t bits = 0;
+        s_ck[sb * nt + l] = incl;
+        if (live) {
+          const float4* fs = s_feat + 3 * sb * kSub;
+          uint32_t cand = 0;
+#pragma unroll
+          for (int s = 0; s < kSub; ++s) {
+            const float power = pair_power(pixel.x, pixel.y, fs[3 * s], fs[3 * s + 1].x);
+            if (!(power < fs[3 * s + 1].z)) cand |= 1u << s;
+          }
+          cand &= span_bits(j_lo - sb * kSub, j_hi - sb * kSub);
+          while (cand) {
+            const int s = __ffs(cand) - 1;
+            cand &= cand - 1;
+            const float4 fa = fs[3 * s];
+            const float4 fb = fs[3 * s + 1];
+            const PairAlpha a = pair_alpha(pixel.x, pixel.y, fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
+                                           alpha_clamp, alpha_min);
+            if (a.alpha == 0.0f && !a.unclamped) continue;
+            incl += log1pf(-a.alpha);
+            const float t_after = t0 * expf(incl);
+            if (!(t_after >= t_min)) {  // every later pair of the chunk is dead
+              live = false;
+              break;
+            }
+            bits |= 1u << s;
+          }
+        }
+        s_mask[sb * nt + l] = (uint8_t)bits;
+      }
+
+      // Reverse sweep, sub-blocks last first. Only the steps (pairs) that
+      // contribute to some pixel of the warp are walked; the other pairs'
+      // partials are zeros.
+      float run = 0.0f;  // sum of m over the chunk's later pairs
+      for (int sb = sb_hi - 1; sb >= sb_lo; --sb) {
+        const uint32_t span = span_bits(j_lo - sb * kSub, j_hi - sb * kSub);
+        const uint32_t bits = s_mask[sb * nt + l];
+#if PF3_BWD_ABLATE == 5
+        const uint32_t active = 0;
+#else
+        const uint32_t active = __reduce_or_sync(0xffffffffu, bits);  // within span
+#endif
+        float* sb_red = w_red + sb * kSub * kFeat;
+        if (first && lane < kFeat) {
+          for (uint32_t z = span & ~active; z != 0; z &= z - 1)
+            sb_red[(__ffs(z) - 1) * kFeat + lane] = 0.0f;
+        }
+        if (active == 0) continue;
+        const int n_act = __popc(active);
+        const float4* fs = s_feat + 3 * sb * kSub;
+        // Replay, active steps in order: the log sum after the k-th in
+        // inc[k]. A step this lane's pixel does not take adds +-0 (alpha 0)
+        // or comes after its dead pair.
+        float inc[kSub];
+        float acc = s_ck[sb * nt + l];
+        uint32_t rest = active;
+#pragma unroll
+        for (int k = 0; k < kSub; ++k) {
+          if (k >= n_act) break;
+          const int s = __ffs(rest) - 1;
+          rest &= rest - 1;
+#if PF3_BWD_ABLATE != 1
+          const float4 fa = fs[3 * s];
+          const float4 fb = fs[3 * s + 1];
+          acc += log1pf(-pair_alpha(pixel.x, pixel.y, fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
+                                    alpha_clamp, alpha_min).alpha);
+#endif
+          inc[k] = acc;
+        }
+        // Gradients, active steps last first.
+        rest = active;
+#pragma unroll
+        for (int k = kSub - 1; k >= 0; --k) {
+          if (k >= n_act) continue;
+          const int s = 31 - __clz(rest);
+          rest ^= 1u << s;
+          const bool c = bits >> s & 1u;  // alive, contributing, in the segment
+          const float4 fa = fs[3 * s];
+          const float4 fb = fs[3 * s + 1];
+          const float4 fc = fs[3 * s + 2];
+          const PairAlpha a = pair_alpha(pixel.x, pixel.y, fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
+                                         alpha_clamp, alpha_min);
+          const float t_after = t0 * expf(inc[k]);
+          const float one_m = fmaxf(1.0f - a.alpha, one_minus_clamp);
+#if PF3_BWD_ABLATE == 3
+          const float rcp = one_m;
+#else
+          const float rcp = __fdividef(1.0f, one_m);
+#endif
+          const float t_before = t_after * rcp;
+          const float wgt = t_before * a.alpha;
+          const float cg = fb.w * pixel.g[0] + fc.x * pixel.g[1] + fc.y * pixel.g[2];
+          const float suffix = run + tail;
+          const float dalpha = a.unclamped ? t_before * cg - suffix * rcp : 0.0f;
+          const float m = wgt * cg;
+          run += c ? m : 0.0f;
+          const float dpow = a.alpha * dalpha;
+          float v[kFeat];
+          v[0] = c ? (fa.z * a.dx + fa.w * a.dy) * dpow : 0.0f;
+          v[1] = c ? (fb.x * a.dy + fa.w * a.dx) * dpow : 0.0f;
+          v[2] = c ? -0.5f * a.dx * a.dx * dpow : 0.0f;
+          v[3] = c ? -a.dx * a.dy * dpow : 0.0f;
+          v[4] = c ? -0.5f * a.dy * a.dy * dpow : 0.0f;
+          v[5] = c ? a.gexp * dalpha : 0.0f;
+          v[6] = c ? pixel.g[0] * wgt : 0.0f;
+          v[7] = c ? pixel.g[1] * wgt : 0.0f;
+          v[8] = c ? pixel.g[2] * wgt : 0.0f;
+#if PF3_BWD_ABLATE == 2
+          const float sum = v[0] + v[1] + v[2] + v[3] + v[4] + v[5] + v[6] + v[7] + v[8];
+          if (lane < kFeat) put_partial(sb_red + s * kFeat + lane, sum, first);
+#else
+          const float sum = warp_sum9(v, lane);
+          if (red_k >= 0) put_partial(sb_red + s * kFeat + red_k, sum, first);
+#endif
         }
       }
-      s_t[j * p + l] = t_after;
-    }
-
-    // Reverse sweep: per-pixel partials, reduced per warp.
-    float run = 0.0f;  // sum of m over the chunk's later pairs
-    for (int j = j_hi - 1; j >= j_lo; --j) {
-      const float ca = s_feat[2 * chunk + j];
-      const float cb = s_feat[3 * chunk + j];
-      const float cc = s_feat[4 * chunk + j];
-      const PairAlpha a = pair_alpha(px, py, s_feat[j], s_feat[chunk + j], ca, cb, cc,
-                                     s_feat[5 * chunk + j], alpha_clamp, alpha_min);
-      const float t_after = s_t[j * p + l];
-      const bool alive = t_after >= t_min;
-      const float one_m = fmaxf(1.0f - a.alpha, one_minus_clamp);
-      const float t_before = t_after / one_m;
-      const float wgt = alive ? t_before * a.alpha : 0.0f;
-      float cg = 0.0f;
-      for (int c = 0; c < channels; ++c) cg += s_feat[(6 + c) * chunk + j] * g[c];
-      const float m = wgt * cg;
-      const float suffix = run + tail;
-      const float dalpha = (alive && a.unclamped) ? t_before * cg - suffix / one_m : 0.0f;
-      run += m;
-      const float dpow = a.alpha * dalpha;
-      float v[kFeat];
-      v[0] = (ca * a.dx + cb * a.dy) * dpow;
-      v[1] = (cc * a.dy + cb * a.dx) * dpow;
-      v[2] = -0.5f * a.dx * a.dx * dpow;
-      v[3] = -a.dx * a.dy * dpow;
-      v[4] = -0.5f * a.dy * a.dy * dpow;
-      v[5] = a.gexp * dalpha;
-      v[6] = g[0] * wgt;
-      v[7] = g[1] * wgt;
-      v[8] = g[2] * wgt;
-#pragma unroll
-      for (int k = 0; k < kFeat; ++k) {
-        const float s = warp_sum(v[k]);
-        if (lane == 0) s_red[(warp * chunk + j) * kFeat + k] = s;
+      tail += run;
+      if (n_parts > 1) {
+        s_tail[pixel.pix] = tail;
+        __syncwarp();  // this part's partials before the next part adds to them
       }
     }
-    tail += run;
     __syncthreads();
 
     // Sum the warps' partials in fixed order; write each value once.
@@ -209,4 +513,71 @@ __device__ __forceinline__ void composite_bwd_row(
       }
     }
   }
+}
+
+template <bool kBlocks>
+__global__ void __launch_bounds__(kMaxThreads, kMinCtas) composite_bwd_kernel(
+    const float* __restrict__ feat, long long plane,
+    const int32_t* __restrict__ base, const int32_t* __restrict__ off,
+    const int32_t* __restrict__ count, const int32_t* __restrict__ tile_ids,
+    const int32_t* __restrict__ nproc, const int32_t* __restrict__ order,
+    const float* __restrict__ bg, const float* __restrict__ tfin,
+    const float* __restrict__ tchk, const float* __restrict__ gimg, int channels,
+    int tiles_x, int ts, int chunk, int n_chunks, float alpha_clamp, float alpha_min,
+    float one_minus_clamp, float t_min, float* __restrict__ out, float* __restrict__ dbg) {
+  composite_bwd_row<kBlocks>(feat, plane, base, off, count, tile_ids, nproc, order, bg, tfin,
+                             tchk, gimg, channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
+                             alpha_min, one_minus_clamp, t_min, out, dbg);
+}
+
+template <bool kBlocks>
+cudaError_t composite_bwd_configure(int ts, int chunk) {
+  const size_t smem = composite_bwd_smem(ts, chunk);
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(composite_bwd_kernel<kBlocks>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+// feat (9, plane) f32; base/off/count/tile_ids/nproc (rows,) i32; order
+// (rows,) i32, the tile row of each CTA (a permutation); bg (rows, ch),
+// tfin (rows, ts*ts), tchk (rows, n_chunks, ts*ts), gimg (rows, ch, ts*ts)
+// f32. ts * ts is a multiple of 32, at most kMaxPixels.
+template <bool kBlocks>
+int composite_bwd_launch(const void* feat, long long plane, const void* base, const void* off,
+                         const void* count, const void* tile_ids, const void* nproc,
+                         const void* order, const void* bg, const void* tfin, const void* tchk,
+                         const void* gimg, int rows, int channels, int tiles_x, int ts,
+                         int chunk, int n_chunks, float alpha_clamp, float alpha_min,
+                         float one_minus_clamp, float t_min, void* out, void* dbg,
+                         void* stream) {
+  const int p = ts * ts;
+  if (p <= 0 || p > kMaxPixels || p % 32 != 0 || chunk <= 0) return (int)cudaErrorInvalidValue;
+  cudaError_t e = composite_bwd_configure<kBlocks>(ts, chunk);
+  if (e != cudaSuccess) return (int)e;
+  if (rows > 0) {
+    composite_bwd_kernel<kBlocks><<<rows, composite_bwd_threads(p), composite_bwd_smem(ts, chunk),
+                                    static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(feat), plane, static_cast<const int32_t*>(base),
+        static_cast<const int32_t*>(off), static_cast<const int32_t*>(count),
+        static_cast<const int32_t*>(tile_ids), static_cast<const int32_t*>(nproc),
+        static_cast<const int32_t*>(order), static_cast<const float*>(bg),
+        static_cast<const float*>(tfin), static_cast<const float*>(tchk),
+        static_cast<const float*>(gimg), channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
+        alpha_min, one_minus_clamp, t_min, static_cast<float*>(out), static_cast<float*>(dbg));
+  }
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the kernel that fit one SM at this tile size and chunk (registers
+// and shared memory as built); negative on an error.
+template <bool kBlocks>
+int composite_bwd_occupancy(int ts, int chunk) {
+  int ctas = 0;
+  cudaError_t e = composite_bwd_configure<kBlocks>(ts, chunk);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &ctas, composite_bwd_kernel<kBlocks>, composite_bwd_threads(ts * ts),
+        composite_bwd_smem(ts, chunk));
+  }
+  return e == cudaSuccess ? ctas : -(int)e;
 }

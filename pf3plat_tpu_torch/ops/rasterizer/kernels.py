@@ -103,11 +103,13 @@ def build_all() -> dict:
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
 
 
-def build_variants(name: str, defines: list[dict]) -> list[ctypes.CDLL]:
+def build_variants(name: str, defines: list[dict], reports: dict | None = None
+                   ) -> list[ctypes.CDLL]:
     """Measurement builds of kernel library `name`, one per dict of
     preprocessor definitions (all compiled together): the ctypes handles, in
-    order. Not counted, not cached in `_LIBS`; the product path never calls
-    this."""
+    order; `reports`, if given, receives each build's compiler report by
+    library file name. Not counted, not cached in `_LIBS`; the product path
+    never calls this."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = []
@@ -126,6 +128,8 @@ def build_variants(name: str, defines: list[dict]) -> list[ctypes.CDLL]:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(f"kernel build failed: {name} {lib.name}:\n{log}")
+            if reports is not None:
+                reports[lib.name] = log
     return [ctypes.CDLL(str(lib)) for _, lib in procs]
 
 

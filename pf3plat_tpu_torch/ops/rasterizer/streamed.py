@@ -377,8 +377,38 @@ def composite_bwd_blocks_plain(featP, base, off, counts, tile_ids, nproc, bg_row
     return torch.stack(blocks).permute(2, 0, 1, 3).contiguous(), dbg
 
 
-def _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
-                    channels, config: RasterizeConfig):
+def bwd_smem_bytes(name: str, config: RasterizeConfig) -> int:
+    """Shared memory of one CTA of kernel B3 (`composite_bwd`) or B5
+    (`composite_bwd_blocks`) at this tile size and chunk, as the library
+    computes it (`composite_bwd_walk.cuh:composite_bwd_smem`)."""
+    fn = getattr(kernels.load(name), f"pf3_{name}_smem")
+    fn.restype = kernels.ctypes.c_longlong
+    fn.argtypes = [kernels.ctypes.c_int] * 2
+    return int(fn(config.tile_size, config.chunk))
+
+
+def bwd_sub_block() -> int:
+    """Pairs per sub-block of the walk of kernels B3 and B5 (`kSub`)."""
+    fn = kernels.load("composite_bwd").pf3_composite_bwd_sub_block
+    fn.restype = kernels.ctypes.c_int
+    fn.argtypes = []
+    return int(fn())
+
+
+def bwd_occupancy(name: str, config: RasterizeConfig) -> int:
+    """CTAs of kernel B3 or B5 that fit one SM at this tile size and chunk
+    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs the card."""
+    fn = getattr(kernels.load(name), f"pf3_{name}_occupancy")
+    fn.restype = kernels.ctypes.c_int
+    fn.argtypes = [kernels.ctypes.c_int] * 2
+    got = int(fn(config.tile_size, config.chunk))
+    if got < 0:
+        raise RuntimeError(f"{name}: occupancy query failed (cudaError {-got})")
+    return got
+
+
+def _check_bwd_args(name, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                    g_tiles, channels, config: RasterizeConfig):
     """Validate what kernels B3 and B5 take; -> (rows, n_chunks)."""
     dev = featP.device
     if dev.type != "cuda":
@@ -388,47 +418,59 @@ def _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tc
     p = ts * ts
     ck = config.chunk
     n_chunks = config.tile_capacity // ck + 1
+    if not 1 <= channels <= 3 or p % 32 or p > 1024:
+        raise ValueError("the compositing backward supports 1-3 channels and tiles of a "
+                         "multiple of 32 pixels up to 1024")
     if featP.dtype != torch.float32 or featP.dim() != 2 or featP.shape[0] != N_FEAT \
             or not featP.is_contiguous():
         raise ValueError("featP: want a contiguous (9, n) float32 tensor")
     if featP.shape[1] < n_chunks * ck:
         raise ValueError("featP is shorter than one tile window")
-    for name, t in (("base", base), ("off", off), ("counts", counts), ("tile_ids", tile_ids),
-                    ("nproc", nproc)):
+    for name_, t in (("base", base), ("off", off), ("counts", counts), ("tile_ids", tile_ids),
+                     ("nproc", nproc)):
         if t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (rows,) \
                 or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous ({rows},) int32 tensor on {dev}")
-    for name, t, shape in (("bg_rows", bg_rows, (rows, channels)), ("tfin", tfin, (rows, 1, p)),
-                           ("tchk", tchk, (rows, n_chunks, p)),
-                           ("g_tiles", g_tiles, (rows, channels, p))):
+            raise ValueError(f"{name_}: want a contiguous ({rows},) int32 tensor on {dev}")
+    for name_, t, shape in (("bg_rows", bg_rows, (rows, channels)),
+                            ("tfin", tfin, (rows, 1, p)), ("tchk", tchk, (rows, n_chunks, p)),
+                            ("g_tiles", g_tiles, (rows, channels, p))):
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
-            raise ValueError(f"{name}: want a contiguous {shape} float32 tensor on {dev}")
-    smem = 4 * (N_FEAT * ck + ck * p + (p // 32) * ck * N_FEAT)
-    if not 1 <= channels <= 3 or p % 32 or p > 1024 or smem > 232448:
-        raise ValueError("the compositing backward supports 1-3 channels, tiles of a multiple "
-                         "of 32 pixels up to 1024, and chunk * pixels within shared memory")
+            raise ValueError(f"{name_}: want a contiguous {shape} float32 tensor on {dev}")
+    smem = bwd_smem_bytes(name, config)
+    if smem > 232448:
+        raise ValueError(f"the compositing backward needs {smem} bytes of shared memory at "
+                         f"chunk {ck}, more than a block's 232448")
     return rows, n_chunks
+
+
+def heaviest_first(counts):
+    """The tile rows by descending pair count, the order in which kernels B3
+    and B5 start them: the longest walks do not end the launch alone."""
+    return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
 
 
 def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
                 g_tiles, tiles_x, channels, config: RasterizeConfig):
     """Launch kernel B3 (`composite_bwd`) or B5 (`composite_bwd_blocks`):
-    one C signature, `out` being dP or the block set -> dbg (rows, ch)."""
+    one C signature, `out` being dP or the block set, the tile rows started
+    heaviest first -> dbg (rows, ch)."""
     dev = featP.device
     rows = base.shape[0]
     n_chunks = config.tile_capacity // config.chunk + 1
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
+    order = heaviest_first(counts)
     ct = kernels.ctypes
     fn = getattr(kernels.load(name), f"pf3_{name}")
     fn.restype = ct.c_int
     fn.argtypes = (
-        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 9 + [ct.c_int] * 6
+        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 10 + [ct.c_int] * 6
         + [ct.c_float] * 4 + [ct.c_void_p] * 3
     )
     rc = fn(
         kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
-        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc), kernels.ptr(bg_rows),
+        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc),
+        kernels.ptr(order), kernels.ptr(bg_rows),
         kernels.ptr(tfin), kernels.ptr(tchk), kernels.ptr(g_tiles), rows, channels, tiles_x,
         config.tile_size, config.chunk, n_chunks, config.alpha_clamp, config.alpha_min,
         1.0 - config.alpha_clamp, config.transmittance_min, kernels.ptr(out), kernels.ptr(dbg),
@@ -442,8 +484,8 @@ def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, t
 def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
                        g_tiles, tiles_x, channels, config: RasterizeConfig):
     """Kernel B3 on the card (`csrc/composite_bwd.cu`)."""
-    _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
-                    channels, config)
+    _check_bwd_args("composite_bwd", featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
+                    tchk, g_tiles, channels, config)
     dP = torch.zeros((N_FEAT, featP.shape[1]), dtype=torch.float32, device=featP.device)
     dbg = _launch_bwd("composite_bwd", dP, featP, base, off, counts, tile_ids, nproc, bg_rows,
                       tfin, tchk, g_tiles, tiles_x, channels, config)
@@ -454,8 +496,8 @@ def composite_bwd_blocks_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows
                               g_tiles, tiles_x, channels, config: RasterizeConfig):
     """Kernel B5 on the card (`csrc/composite_bwd_blocks.cu`); it writes
     every element of the block set, so that is allocated uncleared."""
-    rows, n_chunks = _check_bwd_args(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
-                                     tchk, g_tiles, channels, config)
+    rows, n_chunks = _check_bwd_args("composite_bwd_blocks", featP, base, off, counts, tile_ids,
+                                     nproc, bg_rows, tfin, tchk, g_tiles, channels, config)
     dblk = torch.empty((rows, n_chunks, N_FEAT, config.chunk), dtype=torch.float32,
                        device=featP.device)
     dbg = _launch_bwd("composite_bwd_blocks", dblk, featP, base, off, counts, tile_ids, nproc,

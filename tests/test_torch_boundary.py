@@ -233,6 +233,102 @@ def test_mesh_and_attention_kernels_on_card(card):
                                   v[..., :48].contiguous(), 0.125)
 
 
+def _saturating_screen(device):
+    """One 32 x 48 view whose six 16 x 16 tiles hold 37-47 gaussians each,
+    all covering their whole tile, depth-sorted as listed; the tiles take
+    turns among fronts of 0.995 (every pixel dead at the segment's second or
+    third pair, mostly inside its first sub-block), 0.5 (dead near the 14th pair)
+    and 0.04 (alive to the end)."""
+    import numpy as np
+
+    from pf3plat_tpu_torch.ops.rasterizer.types import ScreenGaussians
+
+    rng = np.random.default_rng(3)
+    parts = {k: [] for k in ("xy", "depth", "conic", "radius", "color", "opacity")}
+    for t in range(6):
+        k = 37 + 2 * t
+        op = np.full(k, (0.04, 0.5, 0.04)[t % 3])
+        if t % 3 == 0:
+            op[:3] = 0.995
+        cx, cy = (t % 3) * 16 + 8.0, (t // 3) * 16 + 8.0
+        parts["xy"].append(np.stack([cx + rng.uniform(-0.5, 0.5, k),
+                                     cy + rng.uniform(-0.5, 0.5, k)], -1))
+        parts["depth"].append(1.0 + t + np.arange(k) * 1e-3)
+        parts["conic"].append(np.tile([1e-4, 0.0, 1e-4], (k, 1)))
+        parts["radius"].append(np.full(k, 7.5))
+        parts["color"].append(rng.uniform(0, 1, (k, 3)))
+        parts["opacity"].append(op)
+    f = {k: torch.as_tensor(np.concatenate(v)[None], dtype=torch.float32, device=device)
+         for k, v in parts.items()}
+    return ScreenGaussians(valid=torch.ones_like(f["depth"], dtype=torch.bool), **f)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["saturating", "nproc_edges", "one_channel", "chunk64",
+                                  "chunk4", "tile32_chunk32", "tile24_chunk64"])
+def test_composite_bwd_walk_edges_on_card(card, case):
+    """B3 and B5 at the edges of their sub-block walk, against their plain
+    versions (1e-4 of the largest value per feature row), merged B5 equal to
+    B3, two runs bit-equal: tiles saturating inside their first sub-block;
+    nproc 0 and n_chunks (chunks the forward never reached); one channel;
+    chunk 64; chunk 4 (a sub-block padded past the chunk); tiles of 1024
+    and 576 pixels (walked in 4 parts of 256 and 3 of 192). Then what the
+    wrappers refuse: a tile whose pixels are no multiple of 32 (the
+    full-size sweep is chip_smoke.py's)."""
+    import dataclasses
+
+    import numpy as np
+
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, streamed
+    from pf3plat_tpu_torch.ops.rasterizer.project import make_camera, project_gaussians
+    from test_torch_helpers import make_scene_np
+
+    ts, chunk = {"chunk64": (16, 64), "chunk4": (16, 4), "tile32_chunk32": (32, 32),
+                 "tile24_chunk64": (24, 64)}.get(case, (16, 128))
+    cfg = RasterizeConfig(tile_size=ts, tile_capacity=256, chunk=chunk)
+    shape = (64, 96)
+    if case == "saturating":
+        screen, shape = _saturating_screen(card), (32, 48)
+        bg = torch.full((1, 3), 0.3, device=card)
+    else:
+        scene = {k: torch.as_tensor(v, device=card)
+                 for k, v in make_scene_np(np.random.default_rng(0), n=4000, b=2,
+                                           spread=0.6).items()}
+        cam = make_camera(scene["extrinsics"], scene["intrinsics"], shape)
+        screen = project_gaussians(cam, scene["means"], scene["covariances"],
+                                   scene["opacities"], scene["sh"], 4, cfg)
+        bg = scene["background"]
+        if case == "one_channel":
+            screen = screen._replace(color=screen.color[..., :1].contiguous())
+            bg = bg[:, :1].contiguous()
+    args, _ = streamed.prepare_streamed(screen, shape, bg, cfg)
+    _, tfin, tchk = streamed.composite_fwd_cuda(**args)
+    rows, ch = args["base"].shape[0], args["channels"]
+    n_chunks = cfg.tile_capacity // cfg.chunk + 1
+    nproc = streamed.n_processed(tchk)
+    if case == "nproc_edges":
+        r = torch.arange(rows, device=card)
+        nproc = torch.where(r % 3 == 0, 0, torch.where(r % 3 == 1, n_chunks, nproc))
+        nproc = nproc.to(torch.int32).contiguous()
+    g_tiles = torch.as_tensor(np.random.default_rng(1).standard_normal((rows, ch, ts * ts)),
+                              dtype=torch.float32, device=card)
+    bwd = [args["featP"], args["base"], args["off"], args["counts"], args["tile_ids"], nproc,
+           args["bg_rows"], tfin, tchk, g_tiles, args["tiles_x"], ch, cfg]
+    assert int((args["off"] % 8 != 0).sum()) > 0  # segments start mid-sub-block
+    dP, dbg = streamed.composite_bwd_cuda(*bwd)
+    blk, dbg5 = streamed.composite_bwd_blocks_cuda(*bwd)
+    ref, ref_dbg = streamed.composite_bwd_plain(*bwd)
+    for k in range(9):
+        assert float((dP[k] - ref[k]).abs().max()) <= 1e-4 * float(ref[k].abs().max())
+    assert float((dbg - ref_dbg).abs().max()) <= 1e-4 * float(ref_dbg.abs().max())
+    assert torch.equal(streamed.merge_blocks(blk, args["base"], args["featP"].shape[1]), dP)
+    assert torch.equal(dbg5, dbg)
+    again = streamed.composite_bwd_cuda(*bwd)
+    assert torch.equal(again[0], dP) and torch.equal(again[1], dbg)
+    with pytest.raises(ValueError, match="multiple of 32 pixels"):
+        streamed.composite_bwd_cuda(*bwd[:-1], dataclasses.replace(cfg, tile_size=12))
+
+
 @pytest.mark.parametrize(
     "module,names",
     [
