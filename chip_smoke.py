@@ -9,6 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # kernel's time goes (measurement builds)
     python3 chip_smoke.py --bwd-ablations  # where kernel B3's time goes
                                      # (measurement builds)
+    python3 chip_smoke.py --fwd-ablations  # where kernel B2's time goes
+                                     # (measurement builds)
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -19,15 +21,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
                composite_bwd_blocks = B5, table_fwd = B6, table_bwd = B7)
                against their plain PyTorch versions on bench.py's scene (2
                views, 131,072 gaussians; fixed upstream gradients from numpy
-               seeds 1 and 2); B5's merged blocks against B3's output; B3
-               and B5 with the CTAs per SM the build reaches, their shared
-               memory, two runs bit-equal;
+               seeds 1 and 2); B5's merged blocks against B3's output; B2,
+               B3, B5 and B7 with the CTAs per SM the build reaches (B2, B7
+               also their registers), B3, B5, B7 their shared memory, two
+               runs bit-equal; B2 with the work its data asks for
+               (`fwd_work`);
      bwd_sweep - B3 and B5 against their plain versions, merged B5 against
                B3, at the edges of their sub-block walk (segments starting
                and ending mid-chunk and mid-sub-block at chunk 128 and 64,
                one channel, tiles saturating inside their first sub-block,
                nproc of 0 and of n_chunks, tiles of 32 x 32 and 24 x 24
-               pixels walked in parts);
+               pixels walked in parts, tiles of 12 x 12 and 20 x 20 pixels
+               with idle lanes); B7 against its plain version on the same
+               walk's table layout (nproc of 0 and of n_chunks, one channel,
+               saturating rows, tiles of 32 x 32 at chunk 128 and 64 and of
+               24 x 24 walked in parts);
      attn_fwd_*, attn_bwd_* - the attention kernels against their plain
                versions at the training step's shapes (pose stack (9, 4,
                4097, 32), the same stacks without the pose token (9, 4, 2401,
@@ -40,9 +48,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                head dims 32 and 64);
   3. render_fwd_bwd - the bench scene through `render`, forward and
                backward with autograd, once per kernel backend (`streamed`,
-               `pallas`): ms and Mrays/s (bench.py's definition), and the
-               rasterizer's gradients against the same screen-space
-               gaussians rendered on the CPU (plain versions);
+               `pallas`) and once `streamed` in 12 x 12 tiles: ms and
+               Mrays/s (bench.py's definition), and the rasterizer's image
+               and gradients against the same screen-space gaussians
+               rendered on the CPU (plain versions);
      mesh_render - the bench scene through `render(..., mesh=)` on a
                (data=1, tile=4) mesh of the one card, three ways (`streamed`
                without compaction = the B5 path, `streamed` shard-local,
@@ -85,6 +94,7 @@ repository, it fails before printing any result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -155,6 +165,14 @@ ATTN_DEPTH_SHAPE = (9, 4, 2401, 2401, 32)
 # Views of the serving request (b = 1): its attention shapes are the pose
 # stack's and the ViT's at this batch.
 SERVE_VIEWS = 5
+
+
+def ptxas_registers(report: str) -> int | None:
+    """The first kernel's register count in an `-Xptxas -v` report."""
+    for ln in report.splitlines():
+        if "Used" in ln and "registers" in ln:
+            return int(ln.split("Used")[1].split("registers")[0])
+    return None
 
 
 def emit(obj) -> None:
@@ -275,11 +293,15 @@ def check_b1(screen, image_shape, config, tag: str) -> dict:
     return row
 
 
-def check_b2(screen, image_shape, background, config, tag: str) -> dict:
-    """Kernel B2 vs its plain version on the same sorted inputs."""
+def check_b2(screen, image_shape, background, config, tag: str, regs: dict) -> dict:
+    """Kernel B2 vs its plain version on the same sorted inputs, two runs
+    bit-equal; times, bound, CTAs an SM, registers (`regs`: per kernel
+    library, from its build) and the work its data asks for."""
     import torch
 
     from pf3plat_tpu_torch.ops.rasterizer import streamed
+
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
 
     args, _ = streamed.prepare_streamed(screen, image_shape, background, config)
     got = streamed.composite_fwd_cuda(**args)
@@ -287,22 +309,95 @@ def check_b2(screen, image_shape, background, config, tag: str) -> dict:
     errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
     if not all(math.isfinite(e) and e <= TOL_B2 for e in errs):
         raise AssertionError(f"B2 {tag}: max abs err (img, tfin, tchk) {errs} > {TOL_B2}")
+    del ref
+    again = streamed.composite_fwd_cuda(**args)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    if not same:
+        raise AssertionError(f"B2 {tag}: two runs on the same inputs differ")
+    del got, again
     rows = args["base"].shape[0]
     pairs = int(args["counts"].sum())
-    evaluations = 256 * pairs
+    p = config.tile_size ** 2
+    evaluations = p * pairs
     ms = cuda_ms(lambda: streamed.composite_fwd_cuda(**args), 20)
     plain_ms = cuda_ms(lambda: streamed.composite_fwd_plain(**args), 3, warmup=1)
     n_chunks = config.tile_capacity // config.chunk + 1
-    moved = pairs * 36 + rows * (4 * 4 + 12) + rows * 256 * 4 * (3 + 1 + n_chunks)
+    moved = pairs * 36 + rows * (4 * 4 + 12) + rows * p * 4 * (3 + 1 + n_chunks)
     ops = evaluations * OPS_B2
     pk = peaks()
     t_bytes, t_ops = moved / pk["bw"] * 1e3, ops / pk["fp32"] * 1e3
     row = dict(phase=f"b2_{tag}", max_abs_err=max(errs), err_img=errs[0], err_tfin=errs[1],
                err_tchk=errs[2], ms=ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
-               tile_rows=rows, pairs_in_segments=pairs, evaluations=evaluations)
+               tile_rows=rows, pairs_in_segments=pairs, evaluations=evaluations,
+               ctas_per_sm=kernels.occupancy("composite_fwd", config.tile_size, config.chunk),
+               registers=regs.get("composite_fwd"), two_runs_bit_equal=same,
+               fwd_work=fwd_work(args))
     emit(row)
     return row
+
+
+def fwd_work(args) -> dict:
+    """What kernel B2's walk asks of this data, counted with the plain
+    arithmetic (`streamed._chunk_alpha`, the running log sum; the power in
+    the plain version's rounding): the tile rows' pair counts (mean and
+    quantiles), the in-segment (pixel, pair) evaluations, those a pixel
+    reaches before its chunk's first dead pair and whose power passes the
+    skip test (candidates: pair_alpha runs), those that contribute (alive,
+    alpha != 0), and the (warp, sub-block) steps with at least one
+    candidate among the warp's 32 pixels and the sub-block's 8 pairs."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import streamed
+
+    cfg = args["config"]
+    ck, ts = cfg.chunk, cfg.tile_size
+    p = ts * ts
+    sub = streamed.bwd_sub_block()
+    px, py = streamed._pixel_centres(args["tile_ids"], args["tiles_x"], ts)
+    off, end = args["off"], (args["off"] + args["counts"]).to(torch.int64)
+    lane = torch.arange(ck, device=off.device)
+    evals = cand_n = contrib = steps = steps_cand = 0
+    tcar = torch.ones((off.numel(), p), device=off.device)
+    for i in range(cfg.tile_capacity // ck + 1):
+        cols = args["base"].to(torch.int64)[:, None] * ck + i * ck + lane[None]
+        data = args["featP"][:, cols]  # (9, rows, ck)
+        j = i * ck + lane[None]
+        seg = (j >= off[:, None]) & (j < end[:, None])  # (rows, ck)
+        if not bool(seg.any()):
+            continue
+        alpha, dx, dy, _, _ = streamed._chunk_alpha(data, px, py, seg, cfg)  # (rows, p, ck)
+        power = (-0.5 * (data[2][:, None, :] * dx * dx + data[4][:, None, :] * dy * dy)
+                 - data[3][:, None, :] * dx * dy)
+        op = data[5][:, None, :]
+        thr = torch.where(op > 0, torch.log(cfg.alpha_min / op.clamp(min=1e-30)) - 0.01,
+                          torch.full_like(op, float("inf")))
+        t_after = tcar[:, :, None] * torch.exp(streamed.running_sum(torch.log1p(-alpha)))
+        alive = (t_after >= cfg.transmittance_min) & seg[:, None, :]
+        dead = seg[:, None, :] & ~alive
+        reached = seg[:, None, :] & (torch.cumsum(dead.int(), dim=-1) - dead.int() == 0)
+        cand = reached & ~(power < thr)
+        evals += int(seg.sum()) * p
+        cand_n += int(cand.sum())
+        contrib += int((alive & (alpha != 0)).sum())
+        n_pad, warps = -(-ck // sub) * sub, -(-p // 32)  # idle lanes: no candidate
+        padded = torch.nn.functional.pad(cand, (0, n_pad - ck, 0, warps * 32 - p))
+        per_step = padded.reshape(cand.shape[0], warps, 32, n_pad // sub, sub).any(dim=(2, 4))
+        seg_sb = torch.nn.functional.pad(seg, (0, n_pad - ck)).reshape(
+            seg.shape[0], n_pad // sub, sub).any(dim=2)  # (rows, n_sub)
+        steps += int(seg_sb.sum()) * warps
+        steps_cand += int(per_step.sum())
+        t_last = torch.amin(torch.where(alive, t_after, torch.full_like(t_after, float("inf"))),
+                            dim=-1)
+        tcar = torch.where(alive.any(dim=-1), t_last, tcar)
+    counts = args["counts"].float()
+    q = torch.quantile(counts, torch.tensor([0.0, 0.5, 0.9, 0.99, 1.0], device=counts.device))
+    return dict(pairs_per_row_mean=float(counts.mean()),
+                pairs_per_row_q0_50_90_99_100=[float(x) for x in q],
+                evaluations=evals, candidates=cand_n, candidate_share=cand_n / max(evals, 1),
+                contributing=contrib, warp_sub_block_steps=steps,
+                warp_sub_block_steps_with_candidate=steps_cand,
+                step_candidate_share=steps_cand / max(steps, 1))
 
 
 def backward_inputs(screen, image_shape, background, config):
@@ -335,7 +430,7 @@ def check_backward(screen, image_shape, background, config, tag: str):
     image gradient from numpy seed 1. -> (B3 row, B4 row)."""
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import compact, streamed
+    from pf3plat_tpu_torch.ops.rasterizer import compact, kernels, streamed
 
     args, extra, bwd = backward_inputs(screen, image_shape, background, config)
     rows = args["base"].shape[0]
@@ -371,8 +466,8 @@ def check_backward(screen, image_shape, background, config, tag: str):
               ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
               bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
               pairs_in_segments=pairs, evaluations=evaluations,
-              ctas_per_sm=streamed.bwd_occupancy("composite_bwd", config),
-              smem_bytes=streamed.bwd_smem_bytes("composite_bwd", config),
+              ctas_per_sm=kernels.occupancy("composite_bwd", config.tile_size, config.chunk),
+              smem_bytes=kernels.smem_bytes("composite_bwd", config.tile_size, config.chunk),
               two_runs_bit_equal=same)
     emit(b3)
 
@@ -408,7 +503,7 @@ def check_b5(screen, image_shape, background, config, tag: str) -> dict:
     B3's dP on the same inputs (the same arithmetic: TOL_B5_B3)."""
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import streamed
+    from pf3plat_tpu_torch.ops.rasterizer import kernels, streamed
 
     args, _, bwd = backward_inputs(screen, image_shape, background, config)
     rows = args["base"].shape[0]
@@ -455,8 +550,10 @@ def check_b5(screen, image_shape, background, config, tag: str) -> dict:
                bound_ms=max(t_bytes, t_ops),
                bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
                block_bytes=got[0].numel() * 4, pairs_in_segments=pairs, evaluations=evaluations,
-               ctas_per_sm=streamed.bwd_occupancy("composite_bwd_blocks", config),
-               smem_bytes=streamed.bwd_smem_bytes("composite_bwd_blocks", config),
+               ctas_per_sm=kernels.occupancy("composite_bwd_blocks", config.tile_size,
+                                             config.chunk),
+               smem_bytes=kernels.smem_bytes("composite_bwd_blocks", config.tile_size,
+                                             config.chunk),
                two_runs_bit_equal=same)
     emit(row)
     return row
@@ -552,9 +649,13 @@ def bwd_sweep() -> dict:
     to 0 on every third tile row and to n_chunks (chunks the forward never
     reached: checkpoint 0, every pair dead) on the next; the bench scene in
     tiles of 32 x 32 and 24 x 24 pixels (walked in 4 parts of 256 and 3 of
-    192 pixels)."""
-    import dataclasses
-
+    192 pixels) and of 12 x 12 and 20 x 20 pixels (144 pixels on 160 lanes,
+    400 in 2 parts of 224: idle lanes). Then kernel B7, the same walk on
+    dense tables (`table_bwd_errors`): the bench scene at the production
+    config, with capacity 256 and chunk 64 (many rows walk every chunk)
+    and every third row's checkpoints set to 0 (nproc 0), in one channel,
+    the saturating scene, tiles of 32 x 32 at chunk 128 and 64 and of 24 x
+    24 at chunk 64 (walked in parts)."""
     import torch
 
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
@@ -575,7 +676,10 @@ def bwd_sweep() -> dict:
              ("tile32_chunk32", screen, bg,
               dataclasses.replace(PRODUCTION_CONFIG, tile_size=32, chunk=32)),
              ("tile24_chunk64", screen, bg,
-              dataclasses.replace(PRODUCTION_CONFIG, tile_size=24, chunk=64)))
+              dataclasses.replace(PRODUCTION_CONFIG, tile_size=24, chunk=64)),
+             ("tile12_chunk128", screen, bg, dataclasses.replace(PRODUCTION_CONFIG, tile_size=12)),
+             ("tile20_chunk64", screen, bg,
+              dataclasses.replace(PRODUCTION_CONFIG, tile_size=20, chunk=64)))
     report = {}
     for tag, scr, background, config in cases:
         args, _, bwd = backward_inputs(scr, shape, background, config)
@@ -599,6 +703,31 @@ def bwd_sweep() -> dict:
             rows["dead_in_first_sub_block"] = int((front & (off % sub <= sub - 3)).sum())
         report[tag] = dict(channels=args["channels"], tile_size=config.tile_size,
                            chunk=config.chunk, **rows, **bwd_errors(bwd, tag))
+    del args, bwd
+    small = dataclasses.replace(PRODUCTION_CONFIG, tile_capacity=256, chunk=64)
+    table_cases = (("table_bench_chunk128", screen, bg, PRODUCTION_CONFIG),
+                   ("table_nproc_edges", screen, bg, small),
+                   ("table_one_channel", one, bg[:, :1].contiguous(), PRODUCTION_CONFIG),
+                   ("table_saturating", sat, bg, RasterizeConfig()),
+                   ("table_tile32_chunk128", screen, bg,
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=32)),
+                   ("table_tile32_chunk64", screen, bg,
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=32, chunk=64)),
+                   ("table_tile24_chunk64", screen, bg,
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=24, chunk=64)))
+    for tag, scr, background, config in table_cases:
+        args = table_inputs(scr, shape, background, config)
+        rows_n = args["table"].shape[0]
+        zero = torch.arange(rows_n, device="cuda") % 3 == 0 if tag == "table_nproc_edges" else None
+        bwd = table_backward_inputs(args, zero)
+        nproc = streamed.n_processed(bwd["tchk"])
+        n_chunks = config.tile_capacity // config.chunk
+        _, _, worst = table_bwd_errors(bwd, tag)
+        report[tag] = dict(channels=args["channels"], tile_size=config.tile_size,
+                           chunk=config.chunk, rows=rows_n, nproc_zero=int((nproc == 0).sum()),
+                           nproc_all=int((nproc == n_chunks).sum()),
+                           partial_last_chunk=int((args["counts"] % config.chunk != 0).sum()),
+                           **worst)
     row = dict(phase="bwd_sweep", tol_rel=TOL_B3, tol_merged=TOL_B5_B3, sub_block=sub,
                cases=report)
     emit(row)
@@ -702,6 +831,71 @@ def bwd_ablations() -> dict:
     ptxas = {name: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
                     if "registers" in ln or "spill" in ln] for name, lib in zip(names, libs)}
     row = dict(phase="b3_ablations", ms=times, work=stats, ptxas=ptxas)
+    emit(row)
+    return row
+
+
+FWD_ABLATIONS = ("full", "no power-test skip", "no cp.async prefetch", "no colour update")
+
+
+def fwd_ablations() -> dict:
+    """Where kernel B2's time goes: measurement builds of
+    `csrc/composite_fwd.cu` that each leave one part out (`PF3_FWD_ABLATE`
+    = 1..3; the first two compute the same results, the third wrong images,
+    none is read), timed beside the full kernel on bench.py's scene and on
+    the saturating scene, all starting the tile rows heaviest first as the
+    wrapper does, and the full kernel once more with the rows in their
+    order; with the work the two scenes ask for (`fwd_work`) and each
+    build's registers."""
+    import torch
+
+    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels, streamed
+
+    ct = kernels.ctypes
+    reports = {}
+    names = list(FWD_ABLATIONS)
+    libs = kernels.build_variants(
+        "composite_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))], reports)
+    for lib in libs:
+        lib.pf3_composite_fwd.restype = ct.c_int
+        lib.pf3_composite_fwd.argtypes = ([ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 6
+                                          + [ct.c_int] * 6 + [ct.c_float] * 4
+                                          + [ct.c_void_p] * 4)
+    shape = (256, 256)
+    scene = bench_scene("cuda")
+    sat, _ = saturating_screen("cuda")
+    times, stats = {}, {}
+    for tag, screen, cfg in (("bench", project(scene, shape, PRODUCTION_CONFIG),
+                              PRODUCTION_CONFIG),
+                             ("saturating", sat, RasterizeConfig())):
+        a, _ = streamed.prepare_streamed(screen, shape, scene["background"], cfg)
+        rows, p = a["base"].shape[0], cfg.tile_size ** 2
+        n_chunks = cfg.tile_capacity // cfg.chunk + 1
+        img = torch.empty((rows, a["channels"], p), device="cuda")
+        tfin = torch.empty((rows, 1, p), device="cuda")
+        tchk = torch.empty((rows, n_chunks, p), device="cuda")
+        heavy = streamed.heaviest_first(a["counts"])
+        runs = [(name, lib, heavy) for name, lib in zip(names, libs)]
+        in_order = torch.arange(rows, dtype=torch.int32, device="cuda")
+        runs.append(("full, rows in their order", libs[0], in_order))
+        for name, lib, order in runs:
+
+            def launch(fn=lib.pf3_composite_fwd, order=order):
+                kernels.check("composite_fwd (measurement build)", fn(
+                    kernels.ptr(a["featP"]), a["featP"].shape[1], kernels.ptr(a["base"]),
+                    kernels.ptr(a["off"]), kernels.ptr(a["counts"]), kernels.ptr(a["tile_ids"]),
+                    kernels.ptr(order), kernels.ptr(a["bg_rows"]), rows, a["channels"],
+                    a["tiles_x"], cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp,
+                    cfg.alpha_min, 1.0 - cfg.alpha_clamp, cfg.transmittance_min,
+                    kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
+                    kernels.stream_ptr(img.device)))
+
+            times.setdefault(name, {})[tag] = cuda_ms(launch, 20)
+        stats[tag] = fwd_work(a)
+    ptxas = {name: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
+                    if "registers" in ln or "spill" in ln] for name, lib in zip(names, libs)}
+    row = dict(phase="b2_ablations", ms=times, work=stats, ptxas=ptxas)
     emit(row)
     return row
 
@@ -932,29 +1126,42 @@ def check_b6(args, tag: str) -> dict:
     return row
 
 
-def check_b7(args, tag: str) -> dict:
-    """Kernel B7 vs its plain version on the same tables, B6's final T and
-    checkpoints, and fixed cotangents of the image (numpy seed 1) and of
-    the final T (numpy seed 2); per table column at B3's tolerance."""
+def table_backward_inputs(args, zero_rows=None) -> dict:
+    """What kernel B7 takes for the tables `args`: B6's final T and
+    checkpoints (every checkpoint of the rows in `zero_rows` set to 0: no
+    chunk of theirs is walked) and fixed cotangents of the image (numpy
+    seed 1) and of the final T (numpy seed 2)."""
     import numpy as np
     import torch
 
     from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
 
     cfg, ch = args["config"], args["channels"]
-    rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
-    n_chunks = cfg.tile_capacity // cfg.chunk
+    rows, p = args["table"].shape[0], cfg.tile_size**2
     _, tfin, tchk = pallas_impl.composite_table_fwd_cuda(**args)
+    if zero_rows is not None:
+        tchk[zero_rows] = 0.0
     g_img = torch.as_tensor(
         np.random.default_rng(1).standard_normal((rows, ch, p)).astype(np.float32), device="cuda")
     g_tfin = torch.as_tensor(
         np.random.default_rng(2).standard_normal((rows, 1, p)).astype(np.float32), device="cuda")
-    bwd = dict(table=args["table"], counts=args["counts"], tile_ids=args["tile_ids"],
-               bg_rows=args["bg_rows"], tfin=tfin, tchk=tchk, g_img=g_img, g_tfin=g_tfin,
-               tiles_x=args["tiles_x"], channels=ch, config=cfg)
+    return dict(table=args["table"], counts=args["counts"], tile_ids=args["tile_ids"],
+                bg_rows=args["bg_rows"], tfin=tfin, tchk=tchk, g_img=g_img, g_tfin=g_tfin,
+                tiles_x=args["tiles_x"], channels=ch, config=cfg)
+
+
+def table_bwd_errors(bwd, tag: str):
+    """Kernel B7 against its plain version on `bwd` (per table column and
+    d(bg) channel at TOL_B3 of its largest plain value), and a second launch
+    bit-equal to the first -> (kernel outputs, errors, worst relative error
+    per output)."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
+
     got = pallas_impl.composite_table_bwd_cuda(**bwd)
     ref = pallas_impl.composite_table_bwd_plain(**bwd)
-    errs = {}
+    errs, worst = {}, {}
     for name, a, r in (("dtab", got[0], ref[0]), ("dbg", got[1], ref[1])):
         for k in range(a.shape[-1]):
             err = float((a[..., k] - r[..., k]).abs().max())
@@ -963,6 +1170,25 @@ def check_b7(args, tag: str) -> dict:
                 raise AssertionError(f"B7 {tag}: {name}[{k}] max abs err {err} > "
                                      f"{TOL_B3} * {scale}")
             errs[f"{name}{k}"] = err
+            worst[name] = max(worst.get(name, 0.0), err / scale if scale > 0 else 0.0)
+    again = pallas_impl.composite_table_bwd_cuda(**bwd)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"B7 {tag}: two runs on the same inputs differ")
+    return got, errs, worst
+
+
+def check_b7(args, tag: str, regs: dict) -> dict:
+    """Kernel B7 vs its plain version on the same tables, B6's final T and
+    checkpoints, and fixed cotangents of the image (numpy seed 1) and of
+    the final T (numpy seed 2); per table column at B3's tolerance, two runs
+    bit-equal."""
+    from pf3plat_tpu_torch.ops.rasterizer import kernels, pallas_impl
+
+    cfg, ch = args["config"], args["channels"]
+    rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
+    n_chunks = cfg.tile_capacity // cfg.chunk
+    bwd = table_backward_inputs(args)
+    _, errs, _ = table_bwd_errors(bwd, tag)
     slots, evaluations = table_work(args)
     ms = cuda_ms(lambda: pallas_impl.composite_table_bwd_cuda(**bwd), 10)
     plain_ms = cuda_ms(lambda: pallas_impl.composite_table_bwd_plain(**bwd), 2, warmup=1)
@@ -974,15 +1200,18 @@ def check_b7(args, tag: str) -> dict:
                ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=max(t_bytes, t_ops),
                bound_by="operations" if t_ops >= t_bytes else "bytes", tile_rows=rows,
                walked_slots=slots, evaluations=evaluations,
-               smem_bytes=pallas_impl.table_bwd_smem_bytes(cfg, ch))
+               ctas_per_sm=kernels.occupancy("table_bwd", cfg.tile_size, cfg.chunk),
+               smem_bytes=kernels.smem_bytes("table_bwd", cfg.tile_size, cfg.chunk),
+               registers=regs.get("table_bwd"), two_runs_bit_equal=True)
     emit(row)
     return row
 
 
-def check_tables(screen, image_shape, background, config, tag: str, backward: bool = True):
+def check_tables(screen, image_shape, background, config, tag: str, regs: dict,
+                 backward: bool = True):
     """B6 (and B7) on the dense tables of `screen` -> (B6 row, B7 row)."""
     args = table_inputs(screen, image_shape, background, config)
-    return check_b6(args, tag), check_b7(args, tag) if backward else None
+    return check_b6(args, tag), check_b7(args, tag, regs) if backward else None
 
 
 def composite(screen, image_shape, background, config, impl):
@@ -997,14 +1226,14 @@ def composite(screen, image_shape, background, config, impl):
     return composite_tiles_pallas_batched(screen, binned, image_shape, background, config)
 
 
-def render_fwd_bwd(scene, config, impl: str):
+def render_fwd_bwd(scene, config, impl: str, tag: str | None = None):
     """The bench scene through `render(impl=...)`, forward and backward: ms and
     Mrays/s (bench.py:245-246: 2 views x 256 x 256 rays over the fwd+bwd
-    time); then the rasterizer's gradients on the card against the same
-    screen-space gaussians rendered on the CPU through the plain versions,
-    per field at the B3 tolerance. (The projection is left out of that
-    comparison: the two devices round it differently, which can reorder
-    near-equal depth keys.)"""
+    time); then the rasterizer's image (at B2's tolerance) and gradients
+    (per field at the B3 tolerance) on the card against the same
+    screen-space gaussians rendered on the CPU through the plain versions.
+    (The projection is left out of that comparison: the two devices round
+    it differently, which can reorder near-equal depth keys.)"""
     import numpy as np
     import torch
 
@@ -1032,7 +1261,7 @@ def render_fwd_bwd(scene, config, impl: str):
     screen = project(scene, (256, 256), config)
     fields = ("xy", "conic", "opacity", "color")
     errs = {}
-    outs = []
+    outs, imgs = [], []
     for dev in ("cuda", "cpu"):
         scr = {f: getattr(screen, f).detach().to(dev).clone() for f in ScreenGaussians._fields}
         bg = scene["background"].detach().to(dev).clone().requires_grad_(True)
@@ -1041,6 +1270,10 @@ def render_fwd_bwd(scene, config, impl: str):
         img = composite(ScreenGaussians(**scr), (256, 256), bg, config, impl)
         ((img - tgt.to(dev)) ** 2).mean().backward()
         outs.append([scr[f].grad.cpu() for f in fields] + [bg.grad.cpu()])
+        imgs.append(img.detach().cpu())
+    img_err = float((imgs[0] - imgs[1]).abs().max())
+    if not img_err <= TOL_B2:
+        raise AssertionError(f"render_fwd_bwd {impl}: image card vs CPU {img_err} > {TOL_B2}")
     for name, a, r in zip(fields + ("background",), *outs):
         err = float((a - r).abs().max())
         scale = float(r.abs().max())
@@ -1048,7 +1281,8 @@ def render_fwd_bwd(scene, config, impl: str):
             raise AssertionError(f"render_fwd_bwd {impl}: d{name} card vs CPU {err} > "
                                  f"{TOL_B3} * {scale}")
         errs[name] = err
-    emit(dict(phase="render_fwd_bwd", impl=impl, ms=ms, mrays_per_s=rays / (ms * 1e-3) / 1e6,
+    emit(dict(phase="render_fwd_bwd", impl=impl, case=tag, tile_size=config.tile_size, ms=ms,
+              mrays_per_s=rays / (ms * 1e-3) / 1e6, img_err_vs_cpu=img_err, tol_img=TOL_B2,
               grad_err_vs_cpu=errs, tol_rel=TOL_B3))
 
 
@@ -1523,6 +1757,7 @@ def main(argv) -> int:
     build = kernels.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in build["ptxas"].items()}
+    regs = {k: ptxas_registers(v) for k, v in build["ptxas"].items()}
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
 
@@ -1534,15 +1769,19 @@ def main(argv) -> int:
         bwd_ablations()
         print(smi, flush=True)
         return 0
+    if "--fwd-ablations" in argv:
+        fwd_ablations()
+        print(smi, flush=True)
+        return 0
 
     config = PRODUCTION_CONFIG
     shape = (256, 256)
     scene = bench_scene("cuda")
     screen = project(scene, shape, config)
     check_b1(screen, shape, config, "bench")
-    check_b2(screen, shape, scene["background"], config, "bench")
+    check_b2(screen, shape, scene["background"], config, "bench", regs)
     check_backward(screen, shape, scene["background"], config, "bench")
-    check_tables(screen, shape, scene["background"], config, "bench")
+    check_tables(screen, shape, scene["background"], config, "bench", regs)
     check_b5(screen, shape, scene["background"], RasterizeConfig(), "bench")
     del screen
     bwd_sweep()
@@ -1561,6 +1800,8 @@ def main(argv) -> int:
 
     for impl in ("streamed", "pallas"):
         render_fwd_bwd(scene, config, impl)
+    # a tile whose pixel count is no multiple of 32 (idle lanes in B2 and B3)
+    render_fwd_bwd(scene, dataclasses.replace(config, tile_size=12), "streamed", "tile12")
     mesh_render(scene, make_mesh(MeshCfg(data_axis=1, tile_axis=4), device="cuda"))
     del scene
 
@@ -1571,9 +1812,9 @@ def main(argv) -> int:
     scene = render_scene(captured)
     screen = project(scene, shape, config)
     b1 = check_b1(screen, shape, config, "serve")
-    check_b2(screen, shape, scene["background"], config, "serve")
+    check_b2(screen, shape, scene["background"], config, "serve", regs)
     reference_check(scene, config)
-    check_tables(screen, shape, scene["background"], config, "serve", backward=False)
+    check_tables(screen, shape, scene["background"], config, "serve", regs, backward=False)
     del scene, screen
     depth_phase(captured, config)
     del captured
@@ -1637,12 +1878,12 @@ def main(argv) -> int:
     screen = project(scene, shape, config)
     rows = {
         "compact_pairs": check_b1(screen, shape, config, "train"),
-        "composite_fwd": check_b2(screen, shape, scene["background"], config, "train"),
+        "composite_fwd": check_b2(screen, shape, scene["background"], config, "train", regs),
     }
     rows["composite_bwd"], rows["dup_reduce"] = check_backward(
         screen, shape, scene["background"], config, "train")
     rows["table_fwd"], rows["table_bwd"] = check_tables(
-        screen, shape, scene["background"], config, "train")
+        screen, shape, scene["background"], config, "train", regs)
     rows["composite_bwd_blocks"] = check_b5(screen, shape, scene["background"],
                                             RasterizeConfig(), "train")
     # the attention kernels at the pose-stack shape (forward and backward of

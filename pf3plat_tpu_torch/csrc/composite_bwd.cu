@@ -4,7 +4,8 @@
 // _streamed_bwd_rmw_kernel` (+ `_bwd_rmw_one_tile`, `_bwd_chunk_grads`):
 // per tile row, the per-pair gradients of [x, y, ca, cb, cc, op, c0..c2]
 // in sorted order, plus d(background) per tile. The walk, its arithmetic
-// and its launch are in composite_bwd_walk.cuh, shared with kernel B5.
+// and its launch are in composite_bwd_walk.cuh, shared with kernels B5 and
+// B7.
 //
 // The TPU kernel read-modify-writes each 128-row window because adjacent
 // tiles' windows overlap. Here each sorted row belongs to exactly one tile
@@ -20,7 +21,8 @@
 // 128 and >= 3 CTAs of 8 warps an SM, no log1p, exponential, gradient or
 // shuffle for an evaluation whose alpha is 0, and 12 shuffles instead of
 // 45 for a pair's 9 sums over a warp. Tiles of up to 1024 pixels are
-// walked in parts of at most 256.
+// walked in parts of at most 256; where the pixel count is no multiple of
+// 32 the lanes past the tile's last pixel idle.
 
 #include "composite_bwd_walk.cuh"
 
@@ -36,10 +38,11 @@ extern "C" int pf3_composite_bwd(const void* feat, long long plane, const void* 
                                  int channels, int tiles_x, int ts, int chunk, int n_chunks,
                                  float alpha_clamp, float alpha_min, float one_minus_clamp,
                                  float t_min, void* dP, void* dbg, void* stream) {
-  return composite_bwd_launch<false>(feat, plane, base, off, count, tile_ids, nproc, order, bg,
-                                     tfin, tchk, gimg, rows, channels, tiles_x, ts, chunk,
-                                     n_chunks, alpha_clamp, alpha_min, one_minus_clamp, t_min,
-                                     dP, dbg, stream);
+  return composite_bwd_launch<Layout::kStreamed>(
+      streamed_walk_args(feat, plane, base, off, count, tile_ids, nproc, order, bg, tfin, tchk,
+                         gimg, channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
+                         alpha_min, one_minus_clamp, t_min, dP, dbg),
+      rows, stream);
 }
 
 // Shared memory of one CTA (bytes) at this tile size and chunk.
@@ -49,8 +52,8 @@ extern "C" long long pf3_composite_bwd_smem(int ts, int chunk) {
 
 // CTAs that fit one SM; negative on an error.
 extern "C" int pf3_composite_bwd_occupancy(int ts, int chunk) {
-  return composite_bwd_occupancy<false>(ts, chunk);
+  return composite_bwd_occupancy<Layout::kStreamed>(ts, chunk);
 }
 
-// Pairs per sub-block of the walk (kSub), shared with kernel B5.
+// Pairs per sub-block of the walk (kSub), shared with kernels B2, B5 and B7.
 extern "C" int pf3_composite_bwd_sub_block() { return kSub; }

@@ -37,10 +37,11 @@ extern "C" int pf3_composite_bwd_blocks(
     const void* tchk, const void* gimg, int rows, int channels, int tiles_x, int ts, int chunk,
     int n_chunks, float alpha_clamp, float alpha_min, float one_minus_clamp, float t_min,
     void* dblk, void* dbg, void* stream) {
-  return composite_bwd_launch<true>(feat, plane, base, off, count, tile_ids, nproc, order, bg,
-                                    tfin, tchk, gimg, rows, channels, tiles_x, ts, chunk,
-                                    n_chunks, alpha_clamp, alpha_min, one_minus_clamp, t_min,
-                                    dblk, dbg, stream);
+  return composite_bwd_launch<Layout::kBlocks>(
+      streamed_walk_args(feat, plane, base, off, count, tile_ids, nproc, order, bg, tfin, tchk,
+                         gimg, channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
+                         alpha_min, one_minus_clamp, t_min, dblk, dbg),
+      rows, stream);
 }
 
 // Shared memory of one CTA (bytes) at this tile size and chunk.
@@ -50,5 +51,5 @@ extern "C" long long pf3_composite_bwd_blocks_smem(int ts, int chunk) {
 
 // CTAs that fit one SM; negative on an error.
 extern "C" int pf3_composite_bwd_blocks_occupancy(int ts, int chunk) {
-  return composite_bwd_occupancy<true>(ts, chunk);
+  return composite_bwd_occupancy<Layout::kBlocks>(ts, chunk);
 }

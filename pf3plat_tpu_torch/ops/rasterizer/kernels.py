@@ -71,7 +71,8 @@ def _build_dir() -> Path:
 def build_all() -> dict:
     """Compile every kernel library not yet built (in parallel).
 
-    Returns {"seconds": wall time, "ptxas": {name: compiler report}}."""
+    Returns {"seconds": wall time, "ptxas": {name: compiler report}}; each
+    report is kept beside its library, so a later call returns it too."""
     out_dir = _build_dir()
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -89,17 +90,18 @@ def build_all() -> dict:
             tmp,
             lib,
         )
-    reports = {}
     failed = []
     for name, (proc, tmp, lib) in procs.items():
         log, _ = proc.communicate()
-        reports[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:
+            lib.with_suffix(".log").write_text(log)
             os.replace(tmp, lib)
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    logs = {name: out_dir / f"lib{name}.log" for name in SOURCES}
+    reports = {name: log.read_text() for name, log in logs.items() if log.exists()}
     return {"seconds": time.perf_counter() - t0, "ptxas": reports}
 
 
@@ -141,6 +143,40 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         _LIBS[name] = ctypes.CDLL(str(lib_path))
     return _LIBS[name]
+
+
+SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
+
+
+def smem_bytes(name: str, ts: int, chunk: int) -> int:
+    """Shared memory of one CTA of compositing kernel `name` (`composite_fwd`,
+    `composite_bwd`, `composite_bwd_blocks`, `table_bwd`) at tile size `ts`
+    and `chunk`, as its library computes it (`pf3_<name>_smem`)."""
+    fn = getattr(load(name), f"pf3_{name}_smem")
+    fn.restype = ctypes.c_longlong
+    fn.argtypes = [ctypes.c_int] * 2
+    return int(fn(ts, chunk))
+
+
+def occupancy(name: str, ts: int, chunk: int) -> int:
+    """CTAs of compositing kernel `name` that fit one SM at tile size `ts`
+    and `chunk` (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`, registers
+    and shared memory as built). Needs the card."""
+    fn = getattr(load(name), f"pf3_{name}_occupancy")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2
+    got = int(fn(ts, chunk))
+    if got < 0:
+        raise RuntimeError(f"{name}: occupancy query failed (cudaError {-got})")
+    return got
+
+
+def check_smem(name: str, ts: int, chunk: int) -> None:
+    """Raise if kernel `name` needs more shared memory than a block has."""
+    need = smem_bytes(name, ts, chunk)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"{name}: tile size {ts} and chunk {chunk} need {need} bytes of "
+                         f"shared memory, more than a block's {SMEM_LIMIT}")
 
 
 def ptr(t) -> ctypes.c_void_p:

@@ -35,8 +35,9 @@ shard on its rows, on the shard's device (`pallas_impl.py:531-551`); binning,
 the gather and its backward stay global.
 
 Dispatch: `composite_table_fwd` / `composite_table_bwd` launch the
-hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`) for CUDA
-tensors and take the plain PyTorch versions for CPU tensors.
+hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`: B7 is the
+backward walk of kernel B3 on table rows, `csrc/composite_bwd_walk.cuh`) for
+CUDA tensors and take the plain PyTorch versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -45,11 +46,18 @@ import torch
 
 from . import kernels
 from .binning import BinnedTiles
-from .streamed import _chunk_alpha, _pixel_centres, running_sum, shard_ranges, tiles_to_image
+from .streamed import (
+    _chunk_alpha,
+    _pixel_centres,
+    heaviest_first,
+    n_processed,
+    running_sum,
+    shard_ranges,
+    tiles_to_image,
+)
 from .types import RasterizeConfig, ScreenGaussians
 
 TABLE_LAYOUTS = ("f_major", "slot_major")
-SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 
 
 def _table_dims(table, config: RasterizeConfig, channels: int):
@@ -173,7 +181,7 @@ def composite_table_fwd_cuda(table, counts, tile_ids, bg_rows, tiles_x, channels
     rows, n_chunks, p = _check_table_args(table, counts, tile_ids, bg_rows, channels, config)
     dev = table.device
     feat = 6 + channels
-    if 4 * config.chunk * feat > SMEM_LIMIT:
+    if 4 * config.chunk * feat > kernels.SMEM_LIMIT:
         raise ValueError(f"chunk {config.chunk} does not fit the block's shared memory")
     img = torch.empty((rows, channels, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((rows, 1, p), dtype=torch.float32, device=dev)
@@ -194,41 +202,33 @@ def composite_table_fwd_cuda(table, counts, tile_ids, bg_rows, tiles_x, channels
     return img, tfin, tchk
 
 
-def table_bwd_smem_bytes(config: RasterizeConfig, channels: int) -> int:
-    """Shared memory of one B7 block: a chunk's features, T after every
-    (slot, pixel), and the warps' partial sums [warp][slot][9]."""
-    p = config.tile_size**2
-    ck = config.chunk
-    return 4 * ((6 + channels) * ck + ck * p + (p // 32) * ck * 9)
-
-
 def composite_table_bwd_cuda(table, counts, tile_ids, bg_rows, tfin, tchk, g_img, g_tfin,
                              tiles_x, channels, config: RasterizeConfig):
-    """Kernel B7 on the card (`csrc/table_bwd.cu`)."""
+    """Kernel B7 on the card (`csrc/table_bwd.cu`): the walked chunks are
+    the first `n_processed(tchk)` of each row (B6 writes a checkpoint above 0
+    for exactly the chunks with i * chunk < count), the rows started
+    heaviest first."""
     rows, n_chunks, p = _table_dims(table, config, channels)
     _check_table_args(
         table, counts, tile_ids, bg_rows, channels, config,
         floats=(("tfin", tfin, (rows, 1, p)), ("tchk", tchk, (rows, n_chunks, p)),
                 ("g_img", g_img, (rows, channels, p)), ("g_tfin", g_tfin, (rows, 1, p))),
     )
-    smem = table_bwd_smem_bytes(config, channels)
-    if smem > SMEM_LIMIT:
-        raise ValueError(
-            f"table backward: chunk {config.chunk} x {p} pixels needs {smem} bytes of "
-            f"shared memory, the block has {SMEM_LIMIT}; use a smaller chunk or tile"
-        )
+    kernels.check_smem("table_bwd", config.tile_size, config.chunk)
     dev = table.device
     dtab = torch.empty_like(table)
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
+    nproc = n_processed(tchk)
+    order = heaviest_first(counts)
     ct = kernels.ctypes
     fn = kernels.load("table_bwd").pf3_table_bwd
     fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 8 + [ct.c_int] * 7 + [ct.c_float] * 4 + [ct.c_void_p] * 3
+    fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 6 + [ct.c_float] * 4 + [ct.c_void_p] * 3
     rc = fn(
-        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(bg_rows),
-        kernels.ptr(tfin), kernels.ptr(tchk), kernels.ptr(g_img), kernels.ptr(g_tfin),
-        rows, channels, config.tile_capacity, tiles_x, config.tile_size, config.chunk,
-        n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc),
+        kernels.ptr(order), kernels.ptr(bg_rows), kernels.ptr(tfin), kernels.ptr(tchk),
+        kernels.ptr(g_img), kernels.ptr(g_tfin), rows, channels, tiles_x, config.tile_size,
+        config.chunk, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
         config.transmittance_min, kernels.ptr(dtab), kernels.ptr(dbg),
         kernels.stream_ptr(dev),
     )

@@ -229,8 +229,9 @@ def composite_fwd_plain(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
 
 
 def composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
-                       channels, config: RasterizeConfig):
-    """Kernel B2 on the card (`csrc/composite_fwd.cu`)."""
+                       channels, config: RasterizeConfig, order=None):
+    """Kernel B2 on the card (`csrc/composite_fwd.cu`), the tile rows
+    started in `order` (default: `heaviest_first(counts)`)."""
     dev = featP.device
     if dev.type != "cuda":
         raise ValueError("composite_fwd_cuda needs CUDA tensors")
@@ -253,6 +254,9 @@ def composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
         raise ValueError(f"bg_rows: want a contiguous ({rows}, {channels}) float32 tensor")
     if not 1 <= channels <= 3 or p > 1024:
         raise ValueError("composite_fwd supports 1-3 channels and tiles of <= 1024 pixels")
+    kernels.check_smem("composite_fwd", ts, ck)
+    if order is None:
+        order = heaviest_first(counts)
     img = torch.empty((rows, channels, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((rows, 1, p), dtype=torch.float32, device=dev)
     tchk = torch.empty((rows, n_chunks, p), dtype=torch.float32, device=dev)
@@ -261,13 +265,13 @@ def composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
     fn = lib.pf3_composite_fwd
     fn.restype = ct.c_int
     fn.argtypes = (
-        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 5 + [ct.c_int] * 6
+        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 6 + [ct.c_int] * 6
         + [ct.c_float] * 4 + [ct.c_void_p] * 4
     )
     rc = fn(
         kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
-        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(bg_rows), rows,
-        channels, tiles_x, ts, ck, n_chunks, config.alpha_clamp, config.alpha_min,
+        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(order), kernels.ptr(bg_rows),
+        rows, channels, tiles_x, ts, ck, n_chunks, config.alpha_clamp, config.alpha_min,
         1.0 - config.alpha_clamp, config.transmittance_min,
         kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
         kernels.stream_ptr(dev),
@@ -278,10 +282,14 @@ def composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
 
 
 def composite_fwd(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
-                  channels, config: RasterizeConfig):
-    """Kernel B2 for CUDA tensors, its plain version for CPU tensors."""
-    fn = composite_fwd_plain if featP.device.type == "cpu" else composite_fwd_cuda
-    return fn(featP, base, off, counts, tile_ids, bg_rows, tiles_x, channels, config)
+                  channels, config: RasterizeConfig, order=None):
+    """Kernel B2 for CUDA tensors (tile rows started in `order`), its plain
+    version for CPU tensors."""
+    if featP.device.type == "cpu":
+        return composite_fwd_plain(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
+                                   channels, config)
+    return composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x, channels,
+                              config, order)
 
 
 def n_processed(tchk):
@@ -377,34 +385,13 @@ def composite_bwd_blocks_plain(featP, base, off, counts, tile_ids, nproc, bg_row
     return torch.stack(blocks).permute(2, 0, 1, 3).contiguous(), dbg
 
 
-def bwd_smem_bytes(name: str, config: RasterizeConfig) -> int:
-    """Shared memory of one CTA of kernel B3 (`composite_bwd`) or B5
-    (`composite_bwd_blocks`) at this tile size and chunk, as the library
-    computes it (`composite_bwd_walk.cuh:composite_bwd_smem`)."""
-    fn = getattr(kernels.load(name), f"pf3_{name}_smem")
-    fn.restype = kernels.ctypes.c_longlong
-    fn.argtypes = [kernels.ctypes.c_int] * 2
-    return int(fn(config.tile_size, config.chunk))
-
-
 def bwd_sub_block() -> int:
-    """Pairs per sub-block of the walk of kernels B3 and B5 (`kSub`)."""
+    """Pairs per sub-block of the compositing walks (`kSub`: kernels B2, B3,
+    B5 and B7)."""
     fn = kernels.load("composite_bwd").pf3_composite_bwd_sub_block
     fn.restype = kernels.ctypes.c_int
     fn.argtypes = []
     return int(fn())
-
-
-def bwd_occupancy(name: str, config: RasterizeConfig) -> int:
-    """CTAs of kernel B3 or B5 that fit one SM at this tile size and chunk
-    (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`). Needs the card."""
-    fn = getattr(kernels.load(name), f"pf3_{name}_occupancy")
-    fn.restype = kernels.ctypes.c_int
-    fn.argtypes = [kernels.ctypes.c_int] * 2
-    got = int(fn(config.tile_size, config.chunk))
-    if got < 0:
-        raise RuntimeError(f"{name}: occupancy query failed (cudaError {-got})")
-    return got
 
 
 def _check_bwd_args(name, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
@@ -418,9 +405,9 @@ def _check_bwd_args(name, featP, base, off, counts, tile_ids, nproc, bg_rows, tf
     p = ts * ts
     ck = config.chunk
     n_chunks = config.tile_capacity // ck + 1
-    if not 1 <= channels <= 3 or p % 32 or p > 1024:
-        raise ValueError("the compositing backward supports 1-3 channels and tiles of a "
-                         "multiple of 32 pixels up to 1024")
+    if not 1 <= channels <= 3 or p > 1024:
+        raise ValueError("the compositing backward supports 1-3 channels and tiles of up "
+                         "to 1024 pixels")
     if featP.dtype != torch.float32 or featP.dim() != 2 or featP.shape[0] != N_FEAT \
             or not featP.is_contiguous():
         raise ValueError("featP: want a contiguous (9, n) float32 tensor")
@@ -437,29 +424,28 @@ def _check_bwd_args(name, featP, base, off, counts, tile_ids, nproc, bg_rows, tf
         if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape \
                 or not t.is_contiguous():
             raise ValueError(f"{name_}: want a contiguous {shape} float32 tensor on {dev}")
-    smem = bwd_smem_bytes(name, config)
-    if smem > 232448:
-        raise ValueError(f"the compositing backward needs {smem} bytes of shared memory at "
-                         f"chunk {ck}, more than a block's 232448")
+    kernels.check_smem(name, ts, ck)
     return rows, n_chunks
 
 
 def heaviest_first(counts):
-    """The tile rows by descending pair count, the order in which kernels B3
-    and B5 start them: the longest walks do not end the launch alone."""
+    """The tile rows by descending pair count, the order in which kernels
+    B2, B3, B5 and B7 start them: the longest walks do not end the launch
+    alone."""
     return torch.argsort(counts, descending=True, stable=True).to(torch.int32)
 
 
 def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
-                g_tiles, tiles_x, channels, config: RasterizeConfig):
+                g_tiles, tiles_x, channels, config: RasterizeConfig, order=None):
     """Launch kernel B3 (`composite_bwd`) or B5 (`composite_bwd_blocks`):
     one C signature, `out` being dP or the block set, the tile rows started
-    heaviest first -> dbg (rows, ch)."""
+    in `order` (default: heaviest first) -> dbg (rows, ch)."""
     dev = featP.device
     rows = base.shape[0]
     n_chunks = config.tile_capacity // config.chunk + 1
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
-    order = heaviest_first(counts)
+    if order is None:
+        order = heaviest_first(counts)
     ct = kernels.ctypes
     fn = getattr(kernels.load(name), f"pf3_{name}")
     fn.restype = ct.c_int
@@ -482,13 +468,13 @@ def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, t
 
 
 def composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
-                       g_tiles, tiles_x, channels, config: RasterizeConfig):
+                       g_tiles, tiles_x, channels, config: RasterizeConfig, order=None):
     """Kernel B3 on the card (`csrc/composite_bwd.cu`)."""
     _check_bwd_args("composite_bwd", featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
                     tchk, g_tiles, channels, config)
     dP = torch.zeros((N_FEAT, featP.shape[1]), dtype=torch.float32, device=featP.device)
     dbg = _launch_bwd("composite_bwd", dP, featP, base, off, counts, tile_ids, nproc, bg_rows,
-                      tfin, tchk, g_tiles, tiles_x, channels, config)
+                      tfin, tchk, g_tiles, tiles_x, channels, config, order)
     return dP, dbg
 
 
@@ -506,11 +492,14 @@ def composite_bwd_blocks_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows
 
 
 def composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
-                  g_tiles, tiles_x, channels, config: RasterizeConfig):
-    """Kernel B3 for CUDA tensors, its plain version for CPU tensors."""
-    fn = composite_bwd_plain if featP.device.type == "cpu" else composite_bwd_cuda
-    return fn(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk, g_tiles,
-              tiles_x, channels, config)
+                  g_tiles, tiles_x, channels, config: RasterizeConfig, order=None):
+    """Kernel B3 for CUDA tensors (tile rows started in `order`), its plain
+    version for CPU tensors."""
+    if featP.device.type == "cpu":
+        return composite_bwd_plain(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin,
+                                   tchk, g_tiles, tiles_x, channels, config)
+    return composite_bwd_cuda(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
+                              g_tiles, tiles_x, channels, config, order)
 
 
 def composite_bwd_blocks(featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
@@ -644,10 +633,14 @@ class StreamedRasterize(torch.autograd.Function):
             img_tiles, tfin, tchk = _on_shards(
                 composite_fwd, {k: args[k] for k in ROW_ARGS},
                 {k: v for k, v in args.items() if k not in ROW_ARGS}, mesh)
+            order = None  # each shard's kernels order its own rows
         else:
-            img_tiles, tfin, tchk = composite_fwd(**args)
+            # B2 and B3 start the tile rows in one order, heaviest first
+            order = heaviest_first(args["counts"])
+            img_tiles, tfin, tchk = composite_fwd(**args, order=order)
         ctx.save_for_backward(args["featP"], extra["ids_sorted"], args["base"], args["off"],
                               args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk)
+        ctx.order = order
         ctx.meta = (b, n, image_shape, args["tiles_x"], extra["tiles_y"], args["channels"],
                     config, use_compaction(config, b, n), mesh if sharded else None)
         out = tiles_to_image(img_tiles, b, args["tiles_x"], extra["tiles_y"],
@@ -662,7 +655,7 @@ class StreamedRasterize(torch.autograd.Function):
         nproc = n_processed(tchk)
         if mesh is None:
             dP, dbg = composite_bwd(featP, base, off, counts, tile_ids, nproc, bg_rows,
-                                    tfin, tchk, g_tiles, tiles_x, channels, config)
+                                    tfin, tchk, g_tiles, tiles_x, channels, config, ctx.order)
         else:
             dblk, dbg = _on_shards(
                 composite_bwd_blocks,

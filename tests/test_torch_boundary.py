@@ -114,13 +114,17 @@ def test_kernels_match_plain_on_card(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "kw,channels",
-    [(dict(), 3), (dict(tile_capacity=256, chunk=64), 3), (dict(tile_capacity=256), 1)],
-    ids=["cap1024-chunk128", "cap256-chunk64", "one-channel"],
+    [(dict(), 3), (dict(tile_capacity=256, chunk=64), 3), (dict(tile_capacity=256), 1),
+     (dict(tile_size=32), 3), (dict(tile_size=32, chunk=64), 3)],
+    ids=["cap1024-chunk128", "cap256-chunk64", "one-channel", "tile32-chunk128",
+         "tile32-chunk64"],
 )
 def test_table_kernels_match_plain_on_card(card, kw, channels):
     """B6 within 1e-5 (image, final T, checkpoints) and B7 within 1e-4 of
     the largest value per table column, against their plain versions, with a
-    cotangent on the final T too (the full-size checks are chip_smoke.py's)."""
+    cotangent on the final T too, and two B7 runs bit-equal; tiles of 32 x
+    32 pixels at chunk 128 and 64, walked in 4 parts (the full-size checks
+    are chip_smoke.py's)."""
     import numpy as np
 
     from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, binning, pallas_impl
@@ -142,11 +146,11 @@ def test_table_kernels_match_plain_on_card(card, kw, channels):
     for a, r in zip(fwd, pallas_impl.composite_table_fwd_plain(**args)):
         assert float((a - r).abs().max()) <= 1e-5
     _, tfin, tchk = fwd
-    rows = args["table"].shape[0]
+    rows, p = args["table"].shape[0], cfg.tile_size ** 2
     rng = np.random.default_rng(1)
-    g_img = torch.as_tensor(rng.standard_normal((rows, channels, 256)), dtype=torch.float32,
+    g_img = torch.as_tensor(rng.standard_normal((rows, channels, p)), dtype=torch.float32,
                             device=card)
-    g_tfin = torch.as_tensor(rng.standard_normal((rows, 1, 256)), dtype=torch.float32,
+    g_tfin = torch.as_tensor(rng.standard_normal((rows, 1, p)), dtype=torch.float32,
                              device=card)
     bwd = [args["table"], args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk, g_img,
            g_tfin, args["tiles_x"], channels, cfg]
@@ -155,15 +159,8 @@ def test_table_kernels_match_plain_on_card(card, kw, channels):
     for a, r in zip(got, ref):
         for k in range(a.shape[-1]):
             assert float((a[..., k] - r[..., k]).abs().max()) <= 1e-4 * float(r[..., k].abs().max())
-    # chunk 64 at 32x32-pixel tiles exceeds B7's shared memory: refused, not run
-    big = RasterizeConfig(tile_size=32, tile_capacity=256, chunk=64)
-    with pytest.raises(ValueError, match="shared memory"):
-        pallas_impl.composite_table_bwd_cuda(
-            torch.zeros((1, 256, 9), device=card), torch.zeros(1, dtype=torch.int32, device=card),
-            torch.zeros(1, dtype=torch.int32, device=card), torch.zeros((1, 3), device=card),
-            torch.zeros((1, 1, 1024), device=card), torch.zeros((1, 4, 1024), device=card),
-            torch.zeros((1, 3, 1024), device=card), torch.zeros((1, 1, 1024), device=card),
-            1, 3, big)
+    again = pallas_impl.composite_table_bwd_cuda(*bwd)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.cuda
@@ -265,15 +262,17 @@ def _saturating_screen(device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["saturating", "nproc_edges", "one_channel", "chunk64",
-                                  "chunk4", "tile32_chunk32", "tile24_chunk64"])
+                                  "chunk4", "tile32_chunk32", "tile24_chunk64", "tile12",
+                                  "tile20_chunk64"])
 def test_composite_bwd_walk_edges_on_card(card, case):
     """B3 and B5 at the edges of their sub-block walk, against their plain
     versions (1e-4 of the largest value per feature row), merged B5 equal to
     B3, two runs bit-equal: tiles saturating inside their first sub-block;
     nproc 0 and n_chunks (chunks the forward never reached); one channel;
     chunk 64; chunk 4 (a sub-block padded past the chunk); tiles of 1024
-    and 576 pixels (walked in 4 parts of 256 and 3 of 192). Then what the
-    wrappers refuse: a tile whose pixels are no multiple of 32 (the
+    and 576 pixels (walked in 4 parts of 256 and 3 of 192); tiles of 144
+    and 400 pixels, no multiple of 32 (idle lanes; 400 in 2 parts of 224).
+    Then what the wrappers refuse: a tile of more than 1024 pixels (the
     full-size sweep is chip_smoke.py's)."""
     import dataclasses
 
@@ -284,7 +283,8 @@ def test_composite_bwd_walk_edges_on_card(card, case):
     from test_torch_helpers import make_scene_np
 
     ts, chunk = {"chunk64": (16, 64), "chunk4": (16, 4), "tile32_chunk32": (32, 32),
-                 "tile24_chunk64": (24, 64)}.get(case, (16, 128))
+                 "tile24_chunk64": (24, 64), "tile12": (12, 128),
+                 "tile20_chunk64": (20, 64)}.get(case, (16, 128))
     cfg = RasterizeConfig(tile_size=ts, tile_capacity=256, chunk=chunk)
     shape = (64, 96)
     if case == "saturating":
@@ -325,8 +325,49 @@ def test_composite_bwd_walk_edges_on_card(card, case):
     assert torch.equal(dbg5, dbg)
     again = streamed.composite_bwd_cuda(*bwd)
     assert torch.equal(again[0], dP) and torch.equal(again[1], dbg)
-    with pytest.raises(ValueError, match="multiple of 32 pixels"):
-        streamed.composite_bwd_cuda(*bwd[:-1], dataclasses.replace(cfg, tile_size=12))
+    with pytest.raises(ValueError, match="up to 1024 pixels"):
+        streamed.composite_bwd_cuda(*bwd[:-1], dataclasses.replace(cfg, tile_size=36))
+
+
+@pytest.mark.cuda
+def test_streamed_render_tile12_matches_cpu_on_card(card):
+    """The `streamed` compositing of a render, forward and backward, in 12
+    x 12 tiles (144 pixels: B2 and B3 with idle lanes) on the card against
+    the same screen-space gaussians composited through the plain versions on
+    the CPU: image within 1e-5, gradients within 1e-4 of each field's
+    largest value. (Projected once, on the CPU: the two devices round the
+    projection differently, which can reorder near-equal depth keys.)"""
+    import numpy as np
+
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig
+    from pf3plat_tpu_torch.ops.rasterizer.project import make_camera, project_gaussians
+    from pf3plat_tpu_torch.ops.rasterizer.streamed import composite_streamed_batched
+    from pf3plat_tpu_torch.ops.rasterizer.types import ScreenGaussians
+    from test_torch_helpers import make_scene_np
+
+    cfg = RasterizeConfig(tile_size=12, tile_capacity=256)
+    shape = (60, 84)
+    scene = {k: torch.as_tensor(v)
+             for k, v in make_scene_np(np.random.default_rng(4), n=3000, b=2, spread=0.6).items()}
+    cam = make_camera(scene["extrinsics"], scene["intrinsics"], shape)
+    screen = project_gaussians(cam, scene["means"], scene["covariances"], scene["opacities"],
+                               scene["sh"], 4, cfg)
+    tgt = torch.as_tensor(np.random.default_rng(5).uniform(0, 1, (2, *shape, 3)),
+                          dtype=torch.float32)
+    fields = ("xy", "conic", "opacity", "color")
+    out = {}
+    for dev in ("cuda", "cpu"):
+        scr = {f: getattr(screen, f).detach().to(dev).clone() for f in ScreenGaussians._fields}
+        for f in fields:
+            scr[f].requires_grad_(True)
+        bg = scene["background"].to(dev).clone().requires_grad_(True)
+        img = composite_streamed_batched(ScreenGaussians(**scr), shape, bg, cfg)
+        ((img - tgt.to(dev)) ** 2).mean().backward()
+        out[dev] = (img.detach().cpu(), [scr[f].grad.cpu() for f in fields] + [bg.grad.cpu()])
+    assert float((out["cuda"][0] - out["cpu"][0]).abs().max()) <= 1e-5
+    for name, got, ref in zip(fields + ("background",), out["cuda"][1], out["cpu"][1]):
+        assert float(ref.abs().max()) > 0, name
+        assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max()), name
 
 
 @pytest.mark.parametrize(

@@ -351,10 +351,49 @@ class TestPallasBackward:
             tpallas.composite_table_fwd_cuda(table, counts, counts, bg, 1, 3, tcfg)
         with pytest.raises(ValueError, match="table: want"):
             tpallas.composite_table_fwd_plain(table[:, :128], counts, counts, bg, 1, 3, tcfg)
-        # chunk 64 at 32x32-pixel tiles does not fit B7's shared-memory plan
-        big = RasterizeConfig(tile_size=32, tile_capacity=256, chunk=64)
-        assert tpallas.table_bwd_smem_bytes(big, 3) > tpallas.SMEM_LIMIT
-        assert tpallas.table_bwd_smem_bytes(RasterizeConfig(), 3) <= tpallas.SMEM_LIMIT
+        # B7's wrapper refuses CPU tensors too; its plain version takes them
+        plane = torch.zeros((2, 1, 256))
+        with pytest.raises(ValueError, match="CUDA tensors"):
+            tpallas.composite_table_bwd_cuda(table, counts, counts, bg, plane,
+                                             torch.zeros((2, 4, 256)), torch.zeros((2, 3, 256)),
+                                             plane, 1, 3, tcfg)
+
+    @pytest.mark.parametrize("chunk", [128, 64])
+    def test_b7_walks_the_processed_prefix(self, chunk):
+        """The chunks B7's plain version walks are exactly the first
+        `n_processed(tchk)` chunks of B6's plain checkpoints (what kernel
+        B7 is handed as its walked count): rows of 0 slots, 1 slot, a
+        partial chunk and full capacity, every slot in the count touching
+        every pixel without saturating it."""
+        from pf3plat_tpu_torch.ops.rasterizer.streamed import n_processed
+
+        cap, ts = 256, 16
+        cfg = RasterizeConfig(tile_size=ts, tile_capacity=cap, chunk=chunk)
+        counts = np.array([0, 1, 100, 150, 256], np.int32)
+        rows = counts.size
+        rng = np.random.default_rng(12)
+        table = np.zeros((rows, cap, 9), np.float32)
+        for r, k in enumerate(counts):
+            table[r, :k, 0] = r * ts + 8.0 + rng.uniform(-1, 1, k)  # tile r of a 5 x 1 grid
+            table[r, :k, 1] = 8.0 + rng.uniform(-1, 1, k)
+            table[r, :k, 2] = table[r, :k, 4] = 1e-4  # wide: alpha ~ op everywhere
+            table[r, :k, 5] = 0.005  # above alpha_min; T after 256 slots ~0.28
+            table[r, :k, 6:] = rng.uniform(0, 1, (k, 3))
+        args = dict(table=t(table), counts=t(counts), tile_ids=t(np.arange(rows, dtype=np.int32)),
+                    bg_rows=t(np.full((rows, 3), 0.3, np.float32)), tiles_x=rows, channels=3,
+                    config=cfg)
+        _, tfin, tchk = tpallas.composite_table_fwd_plain(**args)
+        nproc = n(n_processed(tchk))
+        np.testing.assert_array_equal(nproc, -(-counts // chunk))
+        g_img = t(rng.standard_normal((rows, 3, ts * ts)).astype(np.float32))
+        g_tfin = t(rng.standard_normal((rows, 1, ts * ts)).astype(np.float32))
+        dtab, _ = tpallas.composite_table_bwd_plain(
+            args["table"], args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk, g_img,
+            g_tfin, rows, 3, cfg)
+        walked = n((dtab != 0).reshape(rows, cap // chunk, -1).any(dim=2))
+        np.testing.assert_array_equal(walked, np.arange(cap // chunk)[None] < nproc[:, None])
+        touched = n(dtab[..., 5] != 0)  # d(opacity): every slot in the count
+        np.testing.assert_array_equal(touched, np.arange(cap)[None] < counts[:, None])
 
 
 def _depth_scene(rng, nn=80):
