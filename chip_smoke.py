@@ -9,8 +9,8 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # kernel's time goes (measurement builds)
     python3 chip_smoke.py --bwd-ablations  # where kernel B3's time goes
                                      # (measurement builds)
-    python3 chip_smoke.py --fwd-ablations  # where kernel B2's time goes
-                                     # (measurement builds)
+    python3 chip_smoke.py --fwd-ablations  # where kernels B2's and B6's
+                                     # time goes (measurement builds)
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -22,20 +22,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
                against their plain PyTorch versions on bench.py's scene (2
                views, 131,072 gaussians; fixed upstream gradients from numpy
                seeds 1 and 2); B5's merged blocks against B3's output; B2,
-               B3, B5 and B7 with the CTAs per SM the build reaches (B2, B7
-               also their registers), B3, B5, B7 their shared memory, two
-               runs bit-equal; B2 with the work its data asks for
-               (`fwd_work`);
+               B3, B5, B6 and B7 with the CTAs per SM the build reaches (B1,
+               B2, B6, B7 also their registers), B3, B5, B6, B7 their shared
+               memory, two runs bit-equal (B1 too, with its device
+               operations); B2 and B6 with the work their data asks for
+               (`fwd_work`, `table_fwd_work`);
+     b1_sweep - B1 bit for bit against its plain version at the edges of
+               its window rule (windows of 512, 4,096, 4,224 and 8,192 rows,
+               the last two walked in several 4,096-row slices, a candidate
+               count no multiple of any, none, some and all rows valid,
+               the budgets at which a window is just appended and just
+               dropped);
      bwd_sweep - B3 and B5 against their plain versions, merged B5 against
                B3, at the edges of their sub-block walk (segments starting
                and ending mid-chunk and mid-sub-block at chunk 128 and 64,
                one channel, tiles saturating inside their first sub-block,
                nproc of 0 and of n_chunks, tiles of 32 x 32 and 24 x 24
                pixels walked in parts, tiles of 12 x 12 and 20 x 20 pixels
-               with idle lanes); B7 against its plain version on the same
-               walk's table layout (nproc of 0 and of n_chunks, one channel,
-               saturating rows, tiles of 32 x 32 at chunk 128 and 64 and of
-               24 x 24 walked in parts);
+               with idle lanes); B6 and B7 against their plain versions on
+               the walks' table layout (nproc of 0 and of n_chunks, counts
+               of 0 and past the capacity, one channel, saturating rows,
+               tiles of 32 x 32 at chunk 128 and 64 and of 24 x 24 walked in
+               parts, of 12 x 12 and 20 x 20 with idle lanes);
      attn_fwd_*, attn_bwd_* - the attention kernels against their plain
                versions at the training step's shapes (pose stack (9, 4,
                4097, 32), the same stacks without the pose token (9, 4, 2401,
@@ -48,7 +56,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
                head dims 32 and 64);
   3. render_fwd_bwd - the bench scene through `render`, forward and
                backward with autograd, once per kernel backend (`streamed`,
-               `pallas`) and once `streamed` in 12 x 12 tiles: ms and
+               `pallas`) and once each in 12 x 12 tiles: ms and
                Mrays/s (bench.py's definition), and the rasterizer's image
                and gradients against the same screen-space gaussians
                rendered on the CPU (plain versions);
@@ -167,10 +175,14 @@ ATTN_DEPTH_SHAPE = (9, 4, 2401, 2401, 32)
 SERVE_VIEWS = 5
 
 
-def ptxas_registers(report: str) -> int | None:
-    """The first kernel's register count in an `-Xptxas -v` report."""
+def ptxas_registers(report: str, kernel: str = "") -> int | None:
+    """The register count in an `-Xptxas -v` report of the first kernel
+    whose mangled name contains `kernel`."""
+    entry = None
     for ln in report.splitlines():
-        if "Used" in ln and "registers" in ln:
+        if "Compiling entry function" in ln:
+            entry = ln
+        elif "Used" in ln and "registers" in ln and kernel in (entry or ""):
             return int(ln.split("Used")[1].split("registers")[0])
     return None
 
@@ -258,8 +270,58 @@ def peaks():
     return PEAKS["pcie" if "PCIe" in torch.cuda.get_device_name(0) else "sxm"]
 
 
-def check_b1(screen, image_shape, config, tag: str) -> dict:
-    """Kernel B1 vs its plain version, bit for bit; times and bound."""
+# Device operations of one B1 call as the source makes them: the memset of
+# its status words and ticket, the one-pass kernel and the tail fill
+# (csrc/compact_pairs.cu). check_b1 counts them in the run.
+B1_LAUNCHES = dict(kernels=2, memsets=1, copies=0, other=0)
+
+
+def device_operations(fn) -> dict:
+    """The device operations one call of `fn` enqueues, counted by type in a
+    CUDA graph capture of the call (libcuda's cuGraphGetNodes): kernels,
+    memsets, copies, other nodes. A call that used another stream would
+    fail the capture."""
+    import collections
+    import ctypes
+
+    import torch
+
+    fn()  # anything built or loaded at first use, outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds = collections.Counter()
+    for node in nodes:
+        t = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[{0: "kernels", 1: "copies", 2: "memsets"}.get(t.value, "other")] += 1
+    del graph
+    torch.cuda.synchronize()
+    return {k: kinds[k] for k in B1_LAUNCHES}
+
+
+def b1_equal(got: dict, ref: dict) -> bool:
+    """Two B1 outputs equal bit for bit (keys, ids, counts, features)."""
+    import torch
+
+    return all(torch.equal(got[k], ref[k]) for k in ("tile", "dkey", "ids", "counts")) and \
+        torch.equal(got["feats"].view(torch.int32), ref["feats"].view(torch.int32))
+
+
+def check_b1(screen, image_shape, config, tag: str, regs: dict) -> dict:
+    """Kernel B1 vs its plain version, bit for bit, two runs equal; times,
+    bound, registers of its one-pass kernel and the device operations one
+    call makes (`device_operations`; fails if they are not the source's)."""
     import torch
 
     from pf3plat_tpu_torch.ops.rasterizer import compact
@@ -271,11 +333,10 @@ def check_b1(screen, image_shape, config, tag: str) -> dict:
     got = compact.compact_candidates_cuda(cand, budget, window)
     ref = compact.compact_candidates_plain(cand, budget, window)
     torch.cuda.synchronize()
-    for key in ("tile", "dkey", "ids", "counts"):
-        if not torch.equal(got[key], ref[key]):
-            raise AssertionError(f"B1 {tag}: {key} differs from the plain version")
-    if not torch.equal(got["feats"].view(torch.int32), ref["feats"].view(torch.int32)):
-        raise AssertionError(f"B1 {tag}: features differ from the plain version")
+    if not b1_equal(got, ref):
+        raise AssertionError(f"B1 {tag}: differs from the plain version")
+    if not b1_equal(compact.compact_candidates_cuda(cand, budget, window), got):
+        raise AssertionError(f"B1 {tag}: two runs on the same inputs differ")
     written, total = (int(x) for x in got["counts"])
     n_cand = cand["valid"].numel()
     plane = torch.cat([torch.stack([cand["tile"], cand["dkey"], cand["pid"]]).view(torch.float32),
@@ -286,9 +347,69 @@ def check_b1(screen, image_shape, config, tag: str) -> dict:
     library_ms = cuda_ms(lambda: plane[:, valid], 20)
     moved = n_cand * (1 + 12 + 36) + budget * 48 + 8
     bound_ms = moved / peaks()["bw"] * 1e3
+    ops = device_operations(lambda: compact.compact_candidates_cuda(cand, budget, window))
+    if ops != B1_LAUNCHES:
+        raise AssertionError(f"B1 {tag}: one call made {ops}, the source makes {B1_LAUNCHES}")
     row = dict(phase=f"b1_{tag}", max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
                library_ms=library_ms, bound_ms=bound_ms, bound_by="bytes",
-               candidates=n_cand, written=written, total=total, budget=budget)
+               candidates=n_cand, written=written, total=total, budget=budget,
+               two_runs_bit_equal=True, device_operations=ops,
+               registers=regs.get("compact_pairs"))
+    emit(row)
+    return row
+
+
+def b1_sweep() -> dict:
+    """Kernel B1 bit for bit against its plain version, and two runs equal,
+    at the edges of its window rule: windows of 512, 4,096, 4,224 and 8,192
+    rows (the last two walked in several 4,096-row slices) over 1,000,003
+    candidates (no multiple of any), 60% of them valid (numpy
+    seed 3), none valid and all valid; budgets of `budget_fit` and
+    `budget_fit - 128`, where `budget_fit` is the smallest budget at which
+    window k (the middle one) is still appended, and one that every window
+    fits."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import compact
+
+    n_cand = 1_000_003
+    rng = np.random.default_rng(3)
+    cand = dict(
+        tile=torch.as_tensor(rng.integers(0, 2**31 - 1, n_cand, dtype=np.int32), device="cuda"),
+        dkey=torch.as_tensor(rng.integers(0, 2**31 - 1, n_cand, dtype=np.int32), device="cuda"),
+        pid=torch.arange(n_cand, dtype=torch.int32, device="cuda"),
+        feats=torch.as_tensor(rng.standard_normal((9, n_cand), dtype=np.float32), device="cuda"))
+    flags = {"random": torch.as_tensor(rng.random(n_cand) < 0.6, device="cuda"),
+             "none": torch.zeros(n_cand, dtype=torch.bool, device="cuda"),
+             "all": torch.ones(n_cand, dtype=torch.bool, device="cuda")}
+    cases = {}
+    for window in (512, 4096, 4224, 8192):
+        n_windows = -(-n_cand // window)
+        roomy = -(-(n_cand + window + 128) // 128) * 128
+        for name, valid in flags.items():
+            c = dict(cand, valid=valid)
+            pad = torch.zeros(n_windows * window, dtype=torch.int64, device="cuda")
+            pad[:n_cand] = valid.long()
+            prefix = torch.cumsum(pad.view(n_windows, window).sum(1), 0)
+            k = n_windows // 2
+            fit = (int(prefix[k - 1]) // 128) * 128 + window + 128
+            budgets = {"budget_fit": fit, "budget_fit-128": fit - 128, "all_fit": roomy}
+            for bname, budget in budgets.items():
+                got = compact.compact_candidates_cuda(c, budget, window)
+                ref = compact.compact_candidates_plain(c, budget, window)
+                again = compact.compact_candidates_cuda(c, budget, window)
+                tag = f"w{window}_{name}_{bname}"
+                if not b1_equal(got, ref):
+                    raise AssertionError(f"b1_sweep {tag}: differs from the plain version")
+                if not b1_equal(again, got):
+                    raise AssertionError(f"b1_sweep {tag}: two runs differ")
+                written, total = (int(x) for x in got["counts"])
+                cases[tag] = dict(budget=budget, written=written, total=total,
+                                  window_k=k, rows_before_k=int(prefix[k - 1]),
+                                  rows_through_k=int(prefix[k]))
+    row = dict(phase="b1_sweep", candidates=n_cand, bit_exact=True, two_runs_equal=True,
+               cases=cases)
     emit(row)
     return row
 
@@ -338,14 +459,55 @@ def check_b2(screen, image_shape, background, config, tag: str, regs: dict) -> d
 
 
 def fwd_work(args) -> dict:
-    """What kernel B2's walk asks of this data, counted with the plain
+    """What kernel B2's walk asks of this data (`walk_work`): its windows'
+    chunks, the segment [off, off + count) of each."""
+    import torch
+
+    cfg = args["config"]
+    ck = cfg.chunk
+    off, end = args["off"], (args["off"] + args["counts"]).to(torch.int64)
+    lane = torch.arange(ck, device=off.device)
+
+    def chunks():
+        for i in range(cfg.tile_capacity // ck + 1):
+            cols = args["base"].to(torch.int64)[:, None] * ck + i * ck + lane[None]
+            j = i * ck + lane[None]
+            yield args["featP"][:, cols], (j >= off[:, None]) & (j < end[:, None])
+
+    return walk_work(chunks(), args)
+
+
+def table_fwd_work(args) -> dict:
+    """What kernel B6's walk asks of these tables (`walk_work`): each row's
+    walked chunks, the segment its first min(count, cap) slots."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
+
+    cfg = args["config"]
+    ck = cfg.chunk
+    counts = args["counts"].clamp(max=cfg.tile_capacity).to(torch.int64)
+    lane = torch.arange(ck, device=counts.device)
+
+    def chunks():
+        for i in range(cfg.tile_capacity // ck):
+            yield (pallas_impl._chunk_data(args["table"], i, ck),
+                   i * ck + lane[None] < counts[:, None])
+
+    return walk_work(chunks(), args)
+
+
+def walk_work(chunks, args) -> dict:
+    """What a forward walk asks of its data, counted with the plain
     arithmetic (`streamed._chunk_alpha`, the running log sum; the power in
-    the plain version's rounding): the tile rows' pair counts (mean and
-    quantiles), the in-segment (pixel, pair) evaluations, those a pixel
-    reaches before its chunk's first dead pair and whose power passes the
-    skip test (candidates: pair_alpha runs), those that contribute (alive,
-    alpha != 0), and the (warp, sub-block) steps with at least one
-    candidate among the warp's 32 pixels and the sub-block's 8 pairs."""
+    the plain version's rounding) over `chunks`, which yields each chunk's
+    data (>= 6 feature rows, rows, chunk) and segment mask (rows, chunk):
+    the rows' pair counts (mean and quantiles), the in-segment (pixel, pair)
+    evaluations, those a pixel reaches before its chunk's first dead pair
+    and whose power passes the skip test (candidates: pair_alpha runs),
+    those that contribute (alive, alpha != 0), and the (warp, sub-block)
+    steps with at least one candidate among the warp's 32 pixels and the
+    sub-block's 8 pairs."""
     import torch
 
     from pf3plat_tpu_torch.ops.rasterizer import streamed
@@ -355,15 +517,9 @@ def fwd_work(args) -> dict:
     p = ts * ts
     sub = streamed.bwd_sub_block()
     px, py = streamed._pixel_centres(args["tile_ids"], args["tiles_x"], ts)
-    off, end = args["off"], (args["off"] + args["counts"]).to(torch.int64)
-    lane = torch.arange(ck, device=off.device)
     evals = cand_n = contrib = steps = steps_cand = 0
-    tcar = torch.ones((off.numel(), p), device=off.device)
-    for i in range(cfg.tile_capacity // ck + 1):
-        cols = args["base"].to(torch.int64)[:, None] * ck + i * ck + lane[None]
-        data = args["featP"][:, cols]  # (9, rows, ck)
-        j = i * ck + lane[None]
-        seg = (j >= off[:, None]) & (j < end[:, None])  # (rows, ck)
+    tcar = torch.ones((args["tile_ids"].numel(), p), device=px.device)
+    for data, seg in chunks:
         if not bool(seg.any()):
             continue
         alpha, dx, dy, _, _ = streamed._chunk_alpha(data, px, py, seg, cfg)  # (rows, p, ck)
@@ -650,12 +806,15 @@ def bwd_sweep() -> dict:
     reached: checkpoint 0, every pair dead) on the next; the bench scene in
     tiles of 32 x 32 and 24 x 24 pixels (walked in 4 parts of 256 and 3 of
     192 pixels) and of 12 x 12 and 20 x 20 pixels (144 pixels on 160 lanes,
-    400 in 2 parts of 224: idle lanes). Then kernel B7, the same walk on
-    dense tables (`table_bwd_errors`): the bench scene at the production
-    config, with capacity 256 and chunk 64 (many rows walk every chunk)
-    and every third row's checkpoints set to 0 (nproc 0), in one channel,
-    the saturating scene, tiles of 32 x 32 at chunk 128 and 64 and of 24 x
-    24 at chunk 64 (walked in parts)."""
+    400 in 2 parts of 224: idle lanes). Then kernels B6 (`b6_errors`) and
+    B7 (`table_bwd_errors`), the forward and backward walks on dense
+    tables: the bench scene at the production config, with capacity 256 and
+    chunk 64 (many rows walk every chunk) and every third row's checkpoints
+    set to 0 before B7 (nproc 0), in one channel, the saturating scene,
+    tiles of 32 x 32 at chunk 128 and 64 and of 24 x 24 at chunk 64 (walked
+    in parts), of 12 x 12 and 20 x 20 (idle lanes), and at capacity 256
+    with every fifth row's count set to 0 and every full row's past the
+    capacity."""
     import torch
 
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
@@ -714,10 +873,23 @@ def bwd_sweep() -> dict:
                    ("table_tile32_chunk64", screen, bg,
                     dataclasses.replace(PRODUCTION_CONFIG, tile_size=32, chunk=64)),
                    ("table_tile24_chunk64", screen, bg,
-                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=24, chunk=64)))
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=24, chunk=64)),
+                   ("table_tile12_chunk128", screen, bg,
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=12)),
+                   ("table_tile20_chunk64", screen, bg,
+                    dataclasses.replace(PRODUCTION_CONFIG, tile_size=20, chunk=64)),
+                   ("table_count_edges", screen, bg, small))
     for tag, scr, background, config in table_cases:
         args = table_inputs(scr, shape, background, config)
         rows_n = args["table"].shape[0]
+        if tag == "table_count_edges":
+            # every fifth row's count 0 (its table still full: nothing is
+            # walked), every full row's count past the capacity
+            r = torch.arange(rows_n, device="cuda")
+            full = args["counts"] == config.tile_capacity
+            args["counts"] = torch.where(r % 5 == 0, 0, torch.where(
+                full, config.tile_capacity + 37, args["counts"])).to(torch.int32).contiguous()
+        b6 = b6_errors(args, tag)
         zero = torch.arange(rows_n, device="cuda") % 3 == 0 if tag == "table_nproc_edges" else None
         bwd = table_backward_inputs(args, zero)
         nproc = streamed.n_processed(bwd["tchk"])
@@ -727,7 +899,9 @@ def bwd_sweep() -> dict:
                            chunk=config.chunk, rows=rows_n, nproc_zero=int((nproc == 0).sum()),
                            nproc_all=int((nproc == n_chunks).sum()),
                            partial_last_chunk=int((args["counts"] % config.chunk != 0).sum()),
-                           **worst)
+                           count_zero=int((args["counts"] == 0).sum()),
+                           count_over_cap=int((args["counts"] > config.tile_capacity).sum()),
+                           b6=b6, **worst)
     row = dict(phase="bwd_sweep", tol_rel=TOL_B3, tol_merged=TOL_B5_B3, sub_block=sub,
                cases=report)
     emit(row)
@@ -839,14 +1013,15 @@ FWD_ABLATIONS = ("full", "no power-test skip", "no cp.async prefetch", "no colou
 
 
 def fwd_ablations() -> dict:
-    """Where kernel B2's time goes: measurement builds of
-    `csrc/composite_fwd.cu` that each leave one part out (`PF3_FWD_ABLATE`
-    = 1..3; the first two compute the same results, the third wrong images,
-    none is read), timed beside the full kernel on bench.py's scene and on
-    the saturating scene, all starting the tile rows heaviest first as the
-    wrapper does, and the full kernel once more with the rows in their
-    order; with the work the two scenes ask for (`fwd_work`) and each
-    build's registers."""
+    """Where the forward walk's time goes: measurement builds of
+    `csrc/composite_fwd.cu` (kernel B2) and `csrc/table_fwd.cu` (kernel B6)
+    that each leave one part out (`PF3_FWD_ABLATE` = 1..3; the first two
+    compute the same results, the third wrong images, none is read), timed
+    beside the full kernel on bench.py's scene and on the saturating scene, all
+    starting the tile rows heaviest first as the wrappers do, and the full
+    kernel once more with the rows in their order; with the work the two
+    scenes ask for (`fwd_work`, `table_fwd_work`) and each build's
+    registers."""
     import torch
 
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
@@ -854,50 +1029,79 @@ def fwd_ablations() -> dict:
 
     ct = kernels.ctypes
     reports = {}
-    names = list(FWD_ABLATIONS)
-    libs = kernels.build_variants(
-        "composite_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))], reports)
-    for lib in libs:
+    libs = {
+        "composite_fwd": kernels.build_variants(
+            "composite_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))],
+            reports),
+        "table_fwd": kernels.build_variants(
+            "table_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))], reports),
+    }
+    for lib in libs["composite_fwd"]:
         lib.pf3_composite_fwd.restype = ct.c_int
         lib.pf3_composite_fwd.argtypes = ([ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 6
                                           + [ct.c_int] * 6 + [ct.c_float] * 4
                                           + [ct.c_void_p] * 4)
+    for lib in libs["table_fwd"]:
+        lib.pf3_table_fwd.restype = ct.c_int
+        lib.pf3_table_fwd.argtypes = ([ct.c_void_p] * 5 + [ct.c_int] * 7 + [ct.c_float] * 4
+                                      + [ct.c_void_p] * 4)
     shape = (256, 256)
     scene = bench_scene("cuda")
     sat, _ = saturating_screen("cuda")
-    times, stats = {}, {}
+    times = {"composite_fwd": {}, "table_fwd": {}}
+    stats = {"composite_fwd": {}, "table_fwd": {}}
     for tag, screen, cfg in (("bench", project(scene, shape, PRODUCTION_CONFIG),
                               PRODUCTION_CONFIG),
                              ("saturating", sat, RasterizeConfig())):
+        p = cfg.tile_size ** 2
         a, _ = streamed.prepare_streamed(screen, shape, scene["background"], cfg)
-        rows, p = a["base"].shape[0], cfg.tile_size ** 2
-        n_chunks = cfg.tile_capacity // cfg.chunk + 1
-        img = torch.empty((rows, a["channels"], p), device="cuda")
-        tfin = torch.empty((rows, 1, p), device="cuda")
-        tchk = torch.empty((rows, n_chunks, p), device="cuda")
-        heavy = streamed.heaviest_first(a["counts"])
-        runs = [(name, lib, heavy) for name, lib in zip(names, libs)]
-        in_order = torch.arange(rows, dtype=torch.int32, device="cuda")
-        runs.append(("full, rows in their order", libs[0], in_order))
-        for name, lib, order in runs:
+        t = table_inputs(screen, shape, scene["background"], cfg)
+        for name, args in (("composite_fwd", a), ("table_fwd", t)):
+            rows = args["counts"].shape[0]
+            n_chunks = cfg.tile_capacity // cfg.chunk + (name == "composite_fwd")
+            img = torch.empty((rows, args["channels"], p), device="cuda")
+            tfin = torch.empty((rows, 1, p), device="cuda")
+            tchk = torch.empty((rows, n_chunks, p), device="cuda")
+            heavy = streamed.heaviest_first(args["counts"])
+            runs = [(n, lib, heavy) for n, lib in zip(FWD_ABLATIONS, libs[name])]
+            in_order = torch.arange(rows, dtype=torch.int32, device="cuda")
+            runs.append(("full, rows in their order", libs[name][0], in_order))
+            for label, lib, order in runs:
+                if name == "composite_fwd":
+                    def launch(fn=lib.pf3_composite_fwd, order=order, a=args):
+                        return fn(
+                            kernels.ptr(a["featP"]), a["featP"].shape[1], kernels.ptr(a["base"]),
+                            kernels.ptr(a["off"]), kernels.ptr(a["counts"]),
+                            kernels.ptr(a["tile_ids"]), kernels.ptr(order),
+                            kernels.ptr(a["bg_rows"]), rows, a["channels"], a["tiles_x"],
+                            cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp, cfg.alpha_min,
+                            1.0 - cfg.alpha_clamp, cfg.transmittance_min, kernels.ptr(img),
+                            kernels.ptr(tfin), kernels.ptr(tchk), kernels.stream_ptr(img.device))
+                else:
+                    def launch(fn=lib.pf3_table_fwd, order=order, a=args):
+                        return fn(
+                            kernels.ptr(a["table"]), kernels.ptr(a["counts"]),
+                            kernels.ptr(a["tile_ids"]), kernels.ptr(order),
+                            kernels.ptr(a["bg_rows"]), rows, a["channels"], cfg.tile_capacity,
+                            a["tiles_x"], cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp,
+                            cfg.alpha_min, 1.0 - cfg.alpha_clamp, cfg.transmittance_min,
+                            kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
+                            kernels.stream_ptr(img.device))
 
-            def launch(fn=lib.pf3_composite_fwd, order=order):
-                kernels.check("composite_fwd (measurement build)", fn(
-                    kernels.ptr(a["featP"]), a["featP"].shape[1], kernels.ptr(a["base"]),
-                    kernels.ptr(a["off"]), kernels.ptr(a["counts"]), kernels.ptr(a["tile_ids"]),
-                    kernels.ptr(order), kernels.ptr(a["bg_rows"]), rows, a["channels"],
-                    a["tiles_x"], cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp,
-                    cfg.alpha_min, 1.0 - cfg.alpha_clamp, cfg.transmittance_min,
-                    kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
-                    kernels.stream_ptr(img.device)))
+                def checked(launch=launch, name=name):
+                    kernels.check(f"{name} (measurement build)", launch())
 
-            times.setdefault(name, {})[tag] = cuda_ms(launch, 20)
-        stats[tag] = fwd_work(a)
-    ptxas = {name: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
-                    if "registers" in ln or "spill" in ln] for name, lib in zip(names, libs)}
-    row = dict(phase="b2_ablations", ms=times, work=stats, ptxas=ptxas)
-    emit(row)
-    return row
+                times[name].setdefault(label, {})[tag] = cuda_ms(checked, 20)
+        stats["composite_fwd"][tag] = fwd_work(a)
+        stats["table_fwd"][tag] = table_fwd_work(t)
+    ptxas = {name: {n: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
+                        if "registers" in ln or "spill" in ln]
+                    for n, lib in zip(FWD_ABLATIONS, libs[name])} for name in libs}
+    out = {}
+    for name, phase in (("composite_fwd", "b2_ablations"), ("table_fwd", "b6_ablations")):
+        out[name] = dict(phase=phase, ms=times[name], work=stats[name], ptxas=ptxas[name])
+        emit(out[name])
+    return out
 
 
 def sm_clock_hz() -> float:
@@ -1098,9 +1302,12 @@ def table_work(args) -> tuple[int, int]:
     return walked, walked * cfg.tile_size**2
 
 
-def check_b6(args, tag: str) -> dict:
-    """Kernel B6 vs its plain version on the same tables (image, final T
-    and checkpoints at B2's tolerance); times and bound."""
+def b6_errors(args, tag: str) -> dict:
+    """Kernel B6 against its plain version on the tables `args` (image,
+    final T and checkpoints at B2's tolerance; whether T and the checkpoints
+    are exact is reported), and a second launch bit-equal to the first."""
+    import torch
+
     from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
 
     got = pallas_impl.composite_table_fwd_cuda(**args)
@@ -1108,6 +1315,21 @@ def check_b6(args, tag: str) -> dict:
     errs = [float((a - r).abs().max()) for a, r in zip(got, ref)]
     if not all(math.isfinite(e) and e <= TOL_B2 for e in errs):
         raise AssertionError(f"B6 {tag}: max abs err (img, tfin, tchk) {errs} > {TOL_B2}")
+    exact = all(torch.equal(a, r) for a, r in zip(got[1:], ref[1:]))
+    again = pallas_impl.composite_table_fwd_cuda(**args)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"B6 {tag}: two runs on the same inputs differ")
+    return dict(err_img=errs[0], err_tfin=errs[1], err_tchk=errs[2], tfin_tchk_exact=exact,
+                two_runs_bit_equal=True)
+
+
+def check_b6(args, tag: str, regs: dict) -> dict:
+    """Kernel B6 vs its plain version on the same tables (`b6_errors`);
+    times, bound, CTAs an SM, shared memory, registers and the work its data
+    asks for (`table_fwd_work`)."""
+    from pf3plat_tpu_torch.ops.rasterizer import kernels, pallas_impl
+
+    errs = b6_errors(args, tag)
     cfg, ch = args["config"], args["channels"]
     rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
     n_chunks = cfg.tile_capacity // cfg.chunk
@@ -1117,11 +1339,15 @@ def check_b6(args, tag: str) -> dict:
     moved = slots * feat * 4 + rows * (8 + 4 * ch) + rows * p * 4 * (ch + 1 + n_chunks)
     pk = peaks()
     t_bytes, t_ops = moved / pk["bw"] * 1e3, evaluations * OPS_B6 / pk["fp32"] * 1e3
-    row = dict(phase=f"b6_{tag}", max_abs_err=max(errs), err_img=errs[0], err_tfin=errs[1],
-               err_tchk=errs[2], ms=ms, plain_ms=plain_ms, library_ms=None,
+    row = dict(phase=f"b6_{tag}", max_abs_err=max(errs[k] for k in ("err_img", "err_tfin",
+                                                                     "err_tchk")),
+               **errs, ms=ms, plain_ms=plain_ms, library_ms=None,
                bound_ms=max(t_bytes, t_ops), bound_by="operations" if t_ops >= t_bytes else "bytes",
                tile_rows=rows, slots_in_tables=int(args["counts"].sum()), walked_slots=slots,
-               evaluations=evaluations)
+               evaluations=evaluations,
+               ctas_per_sm=kernels.occupancy("table_fwd", cfg.tile_size, cfg.chunk),
+               smem_bytes=kernels.smem_bytes("table_fwd", cfg.tile_size, cfg.chunk),
+               registers=regs.get("table_fwd"), fwd_work=table_fwd_work(args))
     emit(row)
     return row
 
@@ -1211,7 +1437,7 @@ def check_tables(screen, image_shape, background, config, tag: str, regs: dict,
                  backward: bool = True):
     """B6 (and B7) on the dense tables of `screen` -> (B6 row, B7 row)."""
     args = table_inputs(screen, image_shape, background, config)
-    return check_b6(args, tag), check_b7(args, tag, regs) if backward else None
+    return check_b6(args, tag, regs), check_b7(args, tag, regs) if backward else None
 
 
 def composite(screen, image_shape, background, config, impl):
@@ -1757,7 +1983,9 @@ def main(argv) -> int:
     build = kernels.build_all()
     ptxas = {k: [ln.strip() for ln in v.splitlines() if "registers" in ln or "spill" in ln]
              for k, v in build["ptxas"].items()}
-    regs = {k: ptxas_registers(v) for k, v in build["ptxas"].items()}
+    # B1's library holds two kernels: its registers are the one-pass kernel's
+    regs = {k: ptxas_registers(v, "compact_kernel" if k == "compact_pairs" else "")
+            for k, v in build["ptxas"].items()}
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
 
@@ -1778,12 +2006,13 @@ def main(argv) -> int:
     shape = (256, 256)
     scene = bench_scene("cuda")
     screen = project(scene, shape, config)
-    check_b1(screen, shape, config, "bench")
+    check_b1(screen, shape, config, "bench", regs)
     check_b2(screen, shape, scene["background"], config, "bench", regs)
     check_backward(screen, shape, scene["background"], config, "bench")
     check_tables(screen, shape, scene["background"], config, "bench", regs)
     check_b5(screen, shape, scene["background"], RasterizeConfig(), "bench")
     del screen
+    b1_sweep()
     bwd_sweep()
     attn_pose = check_attention("pose", *ATTN_POSE_SHAPE)
     vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], shape)
@@ -1800,8 +2029,10 @@ def main(argv) -> int:
 
     for impl in ("streamed", "pallas"):
         render_fwd_bwd(scene, config, impl)
-    # a tile whose pixel count is no multiple of 32 (idle lanes in B2 and B3)
-    render_fwd_bwd(scene, dataclasses.replace(config, tile_size=12), "streamed", "tile12")
+    # a tile whose pixel count is no multiple of 32 (idle lanes in B2, B3,
+    # B6 and B7)
+    for impl in ("streamed", "pallas"):
+        render_fwd_bwd(scene, dataclasses.replace(config, tile_size=12), impl, "tile12")
     mesh_render(scene, make_mesh(MeshCfg(data_axis=1, tile_axis=4), device="cuda"))
     del scene
 
@@ -1811,7 +2042,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     scene = render_scene(captured)
     screen = project(scene, shape, config)
-    b1 = check_b1(screen, shape, config, "serve")
+    b1 = check_b1(screen, shape, config, "serve", regs)
     check_b2(screen, shape, scene["background"], config, "serve", regs)
     reference_check(scene, config)
     check_tables(screen, shape, scene["background"], config, "serve", regs, backward=False)
@@ -1877,7 +2108,7 @@ def main(argv) -> int:
     scene = render_scene(captured)
     screen = project(scene, shape, config)
     rows = {
-        "compact_pairs": check_b1(screen, shape, config, "train"),
+        "compact_pairs": check_b1(screen, shape, config, "train", regs),
         "composite_fwd": check_b2(screen, shape, scene["background"], config, "train", regs),
     }
     rows["composite_bwd"], rows["dup_reduce"] = check_backward(

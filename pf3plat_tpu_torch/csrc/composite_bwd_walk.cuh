@@ -96,8 +96,6 @@
 #define PF3_BWD_ABLATE 0
 #endif
 
-enum class Layout { kStreamed, kBlocks, kTable };
-
 constexpr int kMinCtas = 3;  // CTAs an SM the build is held to
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -167,18 +165,6 @@ __device__ __forceinline__ void fetch_chunk(float* s_raw, const float* __restric
   for (int k = threadIdx.x; k < kFeat * chunk; k += blockDim.x) {
     const int f = k / chunk;
     cp_async4(s_raw + k, feat + f * plane + g0 + (k - f * chunk));
-  }
-  cp_async_commit();
-}
-
-// Start copying n contiguous floats at src into s_raw, in 16-byte copies
-// where src is 16-byte aligned and n a multiple of 4 (s_raw always is).
-__device__ __forceinline__ void fetch_contiguous(float* s_raw, const float* __restrict__ src,
-                                                 int n) {
-  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0 && n % 4 == 0) {
-    for (int k = 4 * threadIdx.x; k < n; k += 4 * blockDim.x) cp_async16(s_raw + k, src + k);
-  } else {
-    for (int k = threadIdx.x; k < n; k += blockDim.x) cp_async4(s_raw + k, src + k);
   }
   cp_async_commit();
 }

@@ -4,247 +4,19 @@
 // _streamed_fwd_kernel` (+ `_fwd_one_tile`, `_chunk_alpha_cols`). Per tile
 // row it composites the tile's depth-sorted segment [off, off + count) of
 // the window that starts at base * chunk, front to back, walking the window
-// in `chunk`-row chunks while chunk * i < off + count. Semantics copied from
-// the TPU kernel exactly:
-//   * alpha = min(op * exp(min(power, 0)), alpha_clamp), zeroed unless
-//     power <= 0 and alpha >= alpha_min, with the factored (px - x0) form;
-//   * inside a chunk, T_after is T_chunk_start * exp(running sum of
-//     log1p(-alpha)); a pair is alive iff T_after >= t_min, so once one
-//     pair fails, every later pair of that chunk is dead;
-//   * at the chunk boundary T is RESET to the T after the last alive pair
-//     (the failed pair's alpha is forgotten), so T never drops below t_min
-//     and the walk covers the whole segment;
-//   * tchk[i] = T at the start of chunk i (0 for chunks never reached),
-//     img = accum + bg * T, tfin = T.
-// This differs from the CUDA 3DGS rasterizer, which stops at the first
-// failure for good. tfin and tchk are what kernels B3 and B5 replay from:
-// their forward sweep (composite_bwd_walk.cuh) gives the same T bit for bit.
+// in `chunk`-row chunks while chunk * i < off + count, with the TPU
+// kernel's chunk reset; tchk[i] = T at the start of chunk i (1 for chunks
+// before the segment, 0 for chunks never reached), img = accum + bg * T,
+// tfin = T. This differs from the CUDA 3DGS rasterizer, which stops at the
+// first failure for good. tfin and tchk are what kernels B3 and B5 replay
+// from.
 //
-// Bound on the card: the (pixel, in-segment pair) evaluations, each, as
-// first written, exp + log1p + exp on the SFU and ~20 FP32 operations,
-// although a few percent of them touch their pixel (alpha != 0). The first
-// design paid all of that for every evaluation, staged each chunk with
-// scalar loads between two barriers, let each lane stop at its own first
-// dead pair, started the rows in launch order and ran one CTA of ts^2
-// threads. This design, B3's forward sweep plus the colour sum:
-//   * One CTA of at most 256 threads per tile row, one pixel a thread, 4
-//     CTAs an SM (kFwdMinCtas: <= 64 registers; at 3 CTAs the build took 69
-//     and the bench scene ran slower); a tile of up to 1024 pixels is walked
-//     in parts, each pixel's T and colour sums kept in shared memory between
-//     chunks; lanes past the tile's last pixel idle. Rows start heaviest
-//     first (`order`, the wrapper's).
-//   * Staging (composite_walk_common.cuh): a thread copies its own pairs'
-//     9 feature rows with cp.async one chunk ahead and lays them out
-//     pair-major (three float4, with the pair's power threshold) in one of
-//     two buffers, so one barrier a chunk suffices.
-//   * Per sub-block of kSub = 8 pairs: the 8 power tests (independent), then
-//     pair_alpha, log1p, exp and the colour update only for the candidates
-//     that pass, in order, to the first dead pair; a sub-block where no lane
-//     of the warp has a candidate costs its power tests only. The test is
-//     B3's, so both skip exactly the same evaluations: each adds -0 to the
-//     log sum, which leaves T unchanged bit for bit, and 0 to the colour.
-//   * One reciprocal of 1 - alpha in the colour weight instead of an IEEE
-//     division (T is not touched by it).
-// Deterministic, no atomics.
-//
-// PF3_FWD_ABLATE (measurement builds only, `chip_smoke.py --fwd-ablations`):
-// 1 no power-test skip (every in-segment pair is a candidate: same
-// results), 2 no cp.async prefetch (each chunk's copy waited for at once:
-// same results), 3 no colour update (wrong images).
+// The walk, its arithmetic, its launch and its design for the card are in
+// composite_fwd_walk.cuh (Layout::kStreamed), shared with kernel B6. Bound
+// on the card: operations, ~23 per (pixel, in-segment pair) evaluation as
+// first counted, although a few percent of them touch their pixel.
 
-#include "composite_walk_common.cuh"
-
-#ifndef PF3_FWD_ABLATE
-#define PF3_FWD_ABLATE 0
-#endif
-
-namespace {
-
-constexpr int kFwdMinCtas = 4;  // CTAs an SM the build is held to
-
-// Shared memory of one CTA, bytes: two pair-major buffers (three float4 a
-// pair, padded to whole sub-blocks), the raw rows of the chunk in flight,
-// and each pixel's T and colour sums where the tile is walked in parts.
-size_t composite_fwd_smem(int ts, int chunk) {
-  const int p = ts * ts;
-  const size_t n_pad = (size_t)walk_sub_blocks(chunk) * kSub;
-  return 2 * 3 * sizeof(float4) * n_pad + sizeof(float) * kFeat * chunk +
-         (walk_parts(p) > 1 ? 4 * sizeof(float) * p : 0);
-}
-
-// Start copying the 9 feature rows of the pairs this thread stages (q =
-// threadIdx.x + k * blockDim.x < chunk) of the window at g0 into s_raw,
-// feature-major: the thread's own cp.async.wait_all makes them visible to
-// it, without a barrier.
-__device__ __forceinline__ void fetch_own_pairs(float* s_raw, const float* __restrict__ feat,
-                                                long long plane, long long g0, int chunk) {
-  for (int q = threadIdx.x; q < chunk; q += blockDim.x) {
-#pragma unroll
-    for (int f = 0; f < kFeat; ++f) cp_async4(s_raw + f * chunk + q, feat + f * plane + g0 + q);
-  }
-  cp_async_commit();
-}
-
-__global__ void __launch_bounds__(kMaxThreads, kFwdMinCtas) composite_fwd_kernel(
-    const float* __restrict__ feat, long long plane, const int32_t* __restrict__ base,
-    const int32_t* __restrict__ off, const int32_t* __restrict__ count,
-    const int32_t* __restrict__ tile_ids, const int32_t* __restrict__ order,
-    const float* __restrict__ bg, int channels, int tiles_x, int ts, int chunk, int n_chunks,
-    float alpha_clamp, float alpha_min, float one_minus_clamp, float t_min,
-    float* __restrict__ img, float* __restrict__ tfin, float* __restrict__ tchk) {
-  extern __shared__ float4 sm4[];
-  const int p = ts * ts;
-  const int nt = blockDim.x;  // pixels of a part
-  const int n_parts = (p + nt - 1) / nt;
-  const int n_pad = walk_sub_blocks(chunk) * kSub;
-  float4* s_feat = sm4;                                         // 2 x 3 * n_pad
-  float* s_raw = reinterpret_cast<float*>(s_feat + 6 * n_pad);  // kFeat * chunk
-  float* s_state = s_raw + kFeat * chunk;                       // 4 * p, if n_parts > 1
-  const int r = order[blockIdx.x];
-  const int l = threadIdx.x;
-  const int t_img = tile_ids[r];
-  const int x0 = (t_img % tiles_x) * ts;
-  const int y0 = (t_img / tiles_x) * ts;
-  const int seg_lo = off[r];
-  const int seg_hi = seg_lo + count[r];
-  const long long w0 = (long long)base[r] * chunk;
-
-  // Chunks [i_lo, i_hi) hold the segment and are walked. Every other chunk
-  // composites nothing: T = 1 at its start if it starts before the
-  // segment's end, else it is never reached (0).
-  const int i_lo = seg_lo / chunk;
-  const int i_hi = seg_hi > seg_lo ? min((seg_hi + chunk - 1) / chunk, n_chunks) : i_lo;
-  float* row_chk = tchk + (long long)r * n_chunks * p;
-  for (int q = l; q < n_chunks * p; q += nt) {
-    const int i = q / p;
-    if (i < i_lo || i >= i_hi) row_chk[q] = i * chunk < seg_hi ? 1.0f : 0.0f;
-  }
-
-  float T = 1.0f;
-  float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-  if (n_parts > 1) {  // each thread's own pixels: no barrier
-    for (int q = l; q < p; q += nt) {
-      s_state[q] = 1.0f;
-      s_state[p + q] = 0.0f;
-      s_state[2 * p + q] = 0.0f;
-      s_state[3 * p + q] = 0.0f;
-    }
-  }
-#if PF3_FWD_ABLATE != 2
-  if (i_lo < i_hi) fetch_own_pairs(s_raw, feat, plane, w0 + (long long)i_lo * chunk, chunk);
-#endif
-  for (int i = i_lo; i < i_hi; ++i) {
-    const long long g0 = w0 + (long long)i * chunk;
-#if PF3_FWD_ABLATE == 2
-    fetch_own_pairs(s_raw, feat, plane, g0, chunk);
-#endif
-    float4* fs_buf = s_feat + 3 * n_pad * ((i - i_lo) & 1);
-    cp_async_wait_all();  // this thread's pairs of chunk i are in
-    for (int q = l; q < n_pad; q += nt)
-      stage_pair(fs_buf, s_raw, q, chunk, chunk, 1, channels, alpha_min);
-    // Chunk i is staged, and every thread is past chunk i - 1, whose
-    // buffer chunk i + 1 takes.
-    __syncthreads();
-#if PF3_FWD_ABLATE != 2
-    if (i + 1 < i_hi) fetch_own_pairs(s_raw, feat, plane, g0 + chunk, chunk);
-#endif
-    const int j_lo = max(seg_lo - i * chunk, 0);
-    const int j_hi = min(seg_hi - i * chunk, chunk);
-    const int sb_lo = j_lo / kSub;
-    const int sb_hi = (j_hi + kSub - 1) / kSub;
-
-    for (int part = 0; part < n_parts; ++part) {
-      const int pix = part * nt + l;
-      const bool valid = pix < p;
-      if (n_parts > 1 && valid) {
-        T = s_state[pix];
-        acc0 = s_state[p + pix];
-        acc1 = s_state[2 * p + pix];
-        acc2 = s_state[3 * p + pix];
-      }
-      const float px = (float)(x0 + pix % ts) + 0.5f;
-      const float py = (float)(y0 + pix / ts) + 0.5f;
-      if (valid) row_chk[(long long)i * p + pix] = T;
-      const float t0 = T;
-      float incl = 0.0f;
-      bool live = valid;
-      for (int sb = sb_lo; sb < sb_hi; ++sb) {
-        const float4* fs = fs_buf + 3 * sb * kSub;
-        uint32_t cand = 0;
-        if (live) {
-#if PF3_FWD_ABLATE == 1
-          cand = (1u << kSub) - 1u;
-#else
-#pragma unroll
-          for (int s = 0; s < kSub; ++s) {
-            const float power = pair_power(px, py, fs[3 * s], fs[3 * s + 1].x);
-            if (!(power < fs[3 * s + 1].z)) cand |= 1u << s;
-          }
-#endif
-          cand &= span_bits(j_lo - sb * kSub, j_hi - sb * kSub);
-        }
-        if (!__any_sync(0xffffffffu, cand != 0)) continue;
-        while (cand) {
-          const int s = __ffs(cand) - 1;
-          cand &= cand - 1;
-          const float4 fa = fs[3 * s];
-          const float4 fb = fs[3 * s + 1];
-          const float alpha = pair_alpha(px, py, fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
-                                         alpha_clamp, alpha_min).alpha;
-          if (alpha == 0.0f) continue;
-          incl += log1pf(-alpha);
-          const float t_after = t0 * expf(incl);
-          if (!(t_after >= t_min)) {  // every later pair of the chunk is dead
-            live = false;
-            break;
-          }
-#if PF3_FWD_ABLATE != 3
-          const float4 fc = fs[3 * s + 2];
-          const float w =
-              t_after * __fdividef(1.0f, fmaxf(1.0f - alpha, one_minus_clamp)) * alpha;
-          acc0 += w * fb.w;
-          acc1 += w * fc.x;
-          acc2 += w * fc.y;
-#endif
-          T = t_after;  // the T after the chunk's last alive pair, so far
-        }
-      }
-      if (n_parts > 1 && valid) {
-        s_state[pix] = T;
-        s_state[p + pix] = acc0;
-        s_state[2 * p + pix] = acc1;
-        s_state[3 * p + pix] = acc2;
-      }
-    }
-  }
-
-  for (int part = 0; part < n_parts; ++part) {
-    const int pix = part * nt + l;
-    if (pix >= p) break;
-    if (n_parts > 1) {
-      T = s_state[pix];
-      acc0 = s_state[p + pix];
-      acc1 = s_state[2 * p + pix];
-      acc2 = s_state[3 * p + pix];
-    }
-    const float acc[3] = {acc0, acc1, acc2};
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      if (c < channels)
-        img[((long long)r * channels + c) * p + pix] = acc[c] + bg[r * channels + c] * T;
-    }
-    tfin[(long long)r * p + pix] = T;
-  }
-}
-
-cudaError_t composite_fwd_configure(int ts, int chunk) {
-  const size_t smem = composite_fwd_smem(ts, chunk);
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(composite_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
-}
-
-}  // namespace
+#include "composite_fwd_walk.cuh"
 
 // feat (9, plane) f32; base/off/count/tile_ids (rows,) i32; order (rows,)
 // i32, the tile row of each CTA (a permutation); bg (rows, ch) f32; outputs
@@ -256,21 +28,13 @@ extern "C" int pf3_composite_fwd(const void* feat, long long plane, const void* 
                                  int tiles_x, int ts, int chunk, int n_chunks,
                                  float alpha_clamp, float alpha_min, float one_minus_clamp,
                                  float t_min, void* img, void* tfin, void* tchk, void* stream) {
-  const int p = ts * ts;
-  if (p <= 0 || p > kMaxPixels || chunk <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = composite_fwd_configure(ts, chunk);
-  if (e != cudaSuccess) return (int)e;
-  if (rows > 0) {
-    composite_fwd_kernel<<<rows, walk_threads(p), composite_fwd_smem(ts, chunk),
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(feat), plane, static_cast<const int32_t*>(base),
-        static_cast<const int32_t*>(off), static_cast<const int32_t*>(count),
-        static_cast<const int32_t*>(tile_ids), static_cast<const int32_t*>(order),
-        static_cast<const float*>(bg), channels, tiles_x, ts, chunk, n_chunks, alpha_clamp,
-        alpha_min, one_minus_clamp, t_min, static_cast<float*>(img), static_cast<float*>(tfin),
-        static_cast<float*>(tchk));
-  }
-  return (int)cudaGetLastError();
+  const FwdArgs a{static_cast<const float*>(feat), plane, static_cast<const int32_t*>(base),
+                  static_cast<const int32_t*>(off), static_cast<const int32_t*>(count),
+                  static_cast<const int32_t*>(tile_ids), static_cast<const int32_t*>(order),
+                  static_cast<const float*>(bg), channels, tiles_x, ts, chunk, n_chunks,
+                  alpha_clamp, alpha_min, one_minus_clamp, t_min, static_cast<float*>(img),
+                  static_cast<float*>(tfin), static_cast<float*>(tchk)};
+  return composite_fwd_launch<Layout::kStreamed>(a, rows, stream);
 }
 
 // Shared memory of one CTA (bytes) at this tile size and chunk.
@@ -280,12 +44,5 @@ extern "C" long long pf3_composite_fwd_smem(int ts, int chunk) {
 
 // CTAs that fit one SM; negative on an error.
 extern "C" int pf3_composite_fwd_occupancy(int ts, int chunk) {
-  int ctas = 0;
-  cudaError_t e = composite_fwd_configure(ts, chunk);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, composite_fwd_kernel,
-                                                      walk_threads(ts * ts),
-                                                      composite_fwd_smem(ts, chunk));
-  }
-  return e == cudaSuccess ? ctas : -(int)e;
+  return composite_fwd_occupancy<Layout::kStreamed>(ts, chunk);
 }

@@ -1,7 +1,11 @@
-// What the compositing walks share: kernel B2's forward walk
-// (composite_fwd.cu) and the backward walk of kernels B3, B5 and B7
+// What the compositing walks share: the forward walk of kernels B2 and B6
+// (composite_fwd_walk.cuh) and the backward walk of kernels B3, B5 and B7
 // (composite_bwd_walk.cuh).
 //
+//   * A walk reads a tile row's pairs from one of the sources in `Layout`:
+//     the streamed (9, plane) sorted pair array (B2, B3), the same with the
+//     gradients going to per-chunk blocks (B5), or a dense table row (B6,
+//     B7).
 //   * A CTA has at most kMaxThreads threads, one pixel each; a tile of up to
 //     kMaxPixels pixels is walked in equal parts (walk_parts, walk_threads).
 //     A part has a whole number of warps, so where the tile's pixel count is
@@ -24,6 +28,8 @@
 #include <math_constants.h>
 
 #include "composite_alpha.cuh"
+
+enum class Layout { kStreamed, kBlocks, kTable };
 
 constexpr int kFeat = 9;          // x, y, ca, cb, cc, op, c0, c1, c2
 constexpr int kSub = 8;           // pairs per sub-block of a walk
@@ -83,6 +89,19 @@ __device__ __forceinline__ void cp_async_commit() {
 
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying n contiguous floats at src into s_raw, in 16-byte copies
+// where src is 16-byte aligned and n a multiple of 4 (s_raw always is);
+// cp.async.wait_all and a barrier make them visible to every thread.
+__device__ __forceinline__ void fetch_contiguous(float* s_raw, const float* __restrict__ src,
+                                                 int n) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0 && n % 4 == 0) {
+    for (int k = 4 * threadIdx.x; k < n; k += 4 * blockDim.x) cp_async16(s_raw + k, src + k);
+  } else {
+    for (int k = threadIdx.x; k < n; k += blockDim.x) cp_async4(s_raw + k, src + k);
+  }
+  cp_async_commit();
 }
 
 // Pair q of a chunk, from raw rows where feature f of pair q sits at

@@ -150,6 +150,23 @@ def _outputs(budget: int, device):
     )
 
 
+def window_fit(cnt, budget: int, window: int) -> tuple[int, int, int]:
+    """Kernel B1's overflow rule over the windows' valid-row counts `cnt`
+    (int64) -> (windows appended, rows written, rows valid). The rows
+    written before a window do not decrease, so the appended windows form a
+    prefix; the sub-128 remainder of the last one is trimmed unless a whole
+    128-row block fits (never where window and budget are multiples of
+    128)."""
+    before = torch.cumsum(cnt, 0) - cnt  # rows written before each window
+    fits = (before // 128) * 128 + window + 128 <= budget
+    n_fit = int(fits.sum())
+    w = int(cnt[:n_fit].sum())
+    written = w
+    if w % 128 and (w // 128) * 128 + 128 > budget:
+        written = (w // 128) * 128
+    return n_fit, written, int(cnt.sum())
+
+
 def compact_candidates_plain(cand: dict, budget: int, window: int) -> dict:
     """Plain PyTorch version of kernel B1 (same outputs, bit for bit)."""
     valid = cand["valid"]
@@ -159,15 +176,7 @@ def compact_candidates_plain(cand: dict, budget: int, window: int) -> dict:
     flags = torch.zeros(n_blocks * window, dtype=torch.int64, device=dev)
     flags[:n_cand] = valid.to(torch.int64)
     cnt = flags.view(n_blocks, window).sum(dim=1)
-    before = torch.cumsum(cnt, 0) - cnt  # rows written before each block
-    # W is non-decreasing, so the appended blocks form a prefix.
-    fits = (before // 128) * 128 + window + 128 <= budget
-    n_fit = int(fits.sum())
-    w = int(cnt[:n_fit].sum())
-    total = int(cnt.sum())
-    written = w
-    if w % 128 and (w // 128) * 128 + 128 > budget:
-        written = (w // 128) * 128
+    n_fit, written, total = window_fit(cnt, budget, window)
     src = torch.nonzero(valid[: n_fit * window]).squeeze(1)[:written]
 
     out = _outputs(budget, dev)
@@ -198,21 +207,22 @@ def compact_candidates_cuda(cand: dict, budget: int, window: int) -> dict:
         raise ValueError("candidate valid: want a contiguous bool tensor")
     if window % 128 or budget % 128:
         raise ValueError("window and budget must be multiples of 128")
-    n_blocks = -(-n_cand // window)
+    n_windows = -(-n_cand // window)
     out = _outputs(budget, dev)
-    scratch = torch.empty((2, n_blocks), dtype=torch.int32, device=dev)
+    # the windows' status words and the ticket, zeroed by the kernel's memset
+    scratch = torch.empty(n_windows + 1, dtype=torch.int64, device=dev)
     lib = kernels.load("compact_pairs")
     fn = lib.pf3_compact_pairs
     fn.restype = kernels.ctypes.c_int
     vp = kernels.ctypes.c_void_p
     fn.argtypes = [vp] * 5 + [
         kernels.ctypes.c_longlong, kernels.ctypes.c_int, kernels.ctypes.c_longlong,
-    ] + [vp] * 8
+    ] + [vp] * 7
     rc = fn(
         kernels.ptr(valid.view(torch.uint8)), kernels.ptr(cand["tile"]),
         kernels.ptr(cand["dkey"]), kernels.ptr(cand["pid"]),
         kernels.ptr(cand["feats"]), n_cand, window, budget,
-        kernels.ptr(scratch[0]), kernels.ptr(scratch[1]), kernels.ptr(out["counts"]),
+        kernels.ptr(scratch), kernels.ptr(out["counts"]),
         kernels.ptr(out["tile"]), kernels.ptr(out["dkey"]), kernels.ptr(out["ids"]),
         kernels.ptr(out["feats"]), kernels.stream_ptr(dev),
     )

@@ -150,8 +150,9 @@ SMEM_LIMIT = 232448  # bytes of shared memory one block can use on sm_90
 
 def smem_bytes(name: str, ts: int, chunk: int) -> int:
     """Shared memory of one CTA of compositing kernel `name` (`composite_fwd`,
-    `composite_bwd`, `composite_bwd_blocks`, `table_bwd`) at tile size `ts`
-    and `chunk`, as its library computes it (`pf3_<name>_smem`)."""
+    `composite_bwd`, `composite_bwd_blocks`, `table_fwd`, `table_bwd`) at
+    tile size `ts` and `chunk`, as its library computes it
+    (`pf3_<name>_smem`)."""
     fn = getattr(load(name), f"pf3_{name}_smem")
     fn.restype = ctypes.c_longlong
     fn.argtypes = [ctypes.c_int] * 2

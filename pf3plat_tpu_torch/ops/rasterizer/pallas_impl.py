@@ -35,9 +35,11 @@ shard on its rows, on the shard's device (`pallas_impl.py:531-551`); binning,
 the gather and its backward stay global.
 
 Dispatch: `composite_table_fwd` / `composite_table_bwd` launch the
-hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`: B7 is the
-backward walk of kernel B3 on table rows, `csrc/composite_bwd_walk.cuh`) for
-CUDA tensors and take the plain PyTorch versions for CPU tensors.
+hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`: B6 is the
+forward walk of kernel B2 on table rows, `csrc/composite_fwd_walk.cuh`, and
+B7 the backward walk of kernel B3, `csrc/composite_bwd_walk.cuh`; both take
+any tile of up to 1024 pixels) for CUDA tensors and take the plain PyTorch
+versions for CPU tensors.
 """
 
 from __future__ import annotations
@@ -160,9 +162,9 @@ def _check_table_args(table, counts, tile_ids, bg_rows, channels, config, floats
     if dev.type != "cuda":
         raise ValueError("the table kernels need CUDA tensors")
     rows, n_chunks, p = _table_dims(table, config, channels)
-    if not 1 <= channels <= 3 or p % 32 or p > 1024:
-        raise ValueError("the table kernels support 1-3 channels and tiles of a "
-                         "multiple of 32 pixels up to 1024")
+    if not 1 <= channels <= 3 or p > 1024:
+        raise ValueError("the table kernels support 1-3 channels and tiles of up to 1024 "
+                         "pixels")
     for name, x in (("counts", counts), ("tile_ids", tile_ids)):
         if x.device != dev or x.dtype != torch.int32 or tuple(x.shape) != (rows,) \
                 or not x.is_contiguous():
@@ -177,23 +179,23 @@ def _check_table_args(table, counts, tile_ids, bg_rows, channels, config, floats
 
 def composite_table_fwd_cuda(table, counts, tile_ids, bg_rows, tiles_x, channels,
                              config: RasterizeConfig):
-    """Kernel B6 on the card (`csrc/table_fwd.cu`)."""
+    """Kernel B6 on the card (`csrc/table_fwd.cu`), the rows started
+    heaviest first."""
     rows, n_chunks, p = _check_table_args(table, counts, tile_ids, bg_rows, channels, config)
+    kernels.check_smem("table_fwd", config.tile_size, config.chunk)
     dev = table.device
-    feat = 6 + channels
-    if 4 * config.chunk * feat > kernels.SMEM_LIMIT:
-        raise ValueError(f"chunk {config.chunk} does not fit the block's shared memory")
+    order = heaviest_first(counts)
     img = torch.empty((rows, channels, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((rows, 1, p), dtype=torch.float32, device=dev)
     tchk = torch.empty((rows, n_chunks, p), dtype=torch.float32, device=dev)
     ct = kernels.ctypes
     fn = kernels.load("table_fwd").pf3_table_fwd
     fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 4 + [ct.c_int] * 7 + [ct.c_float] * 4 + [ct.c_void_p] * 4
+    fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 7 + [ct.c_float] * 4 + [ct.c_void_p] * 4
     rc = fn(
-        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(bg_rows),
-        rows, channels, config.tile_capacity, tiles_x, config.tile_size, config.chunk,
-        n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(order),
+        kernels.ptr(bg_rows), rows, channels, config.tile_capacity, tiles_x, config.tile_size,
+        config.chunk, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
         config.transmittance_min, kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
         kernels.stream_ptr(dev),
     )

@@ -112,19 +112,60 @@ def test_kernels_match_plain_on_card(card):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [512, 4096, 4224, 8192])
+def test_b1_edges_match_plain_on_card(card, window):
+    """B1 bit for bit against its plain version, and two runs equal, at the
+    edges of its window rule: windows of one 4,096-row slice and of several
+    (4,224 and 8,192); a candidate count no multiple of the window;
+    none, some and all rows valid; the budget at which window k is just
+    appended (`budget_fit`) and 128 rows less, at which it and every later
+    window are dropped (the full-size sweep is chip_smoke.py's)."""
+    import numpy as np
+
+    from pf3plat_tpu_torch.ops.rasterizer import compact
+
+    n_cand = 9 * window + 200
+    rng = np.random.default_rng(3)
+    cand = dict(
+        tile=torch.as_tensor(rng.integers(0, 2**31 - 1, n_cand, dtype=np.int32), device=card),
+        dkey=torch.as_tensor(rng.integers(0, 2**31 - 1, n_cand, dtype=np.int32), device=card),
+        pid=torch.arange(n_cand, dtype=torch.int32, device=card),
+        feats=torch.as_tensor(rng.standard_normal((9, n_cand), dtype=np.float32), device=card))
+    for valid in (rng.random(n_cand) < 0.6, np.zeros(n_cand, bool), np.ones(n_cand, bool)):
+        c = dict(cand, valid=torch.as_tensor(valid, device=card))
+        cnt = np.bincount(np.arange(n_cand) // window, weights=valid, minlength=10)
+        fit = (int(cnt[:4].sum()) // 128) * 128 + window + 128  # window 4 just appended
+        for budget in (fit, fit - 128):
+            got = compact.compact_candidates_cuda(c, budget, window)
+            ref = compact.compact_candidates_plain(c, budget, window)
+            again = compact.compact_candidates_cuda(c, budget, window)
+            for out in (ref, again):
+                for key in ("tile", "dkey", "ids", "counts"):
+                    assert torch.equal(got[key], out[key]), (key, budget)
+                assert torch.equal(got["feats"].view(torch.int32), out["feats"].view(torch.int32))
+            written = int(got["counts"][0])
+            if budget == fit:
+                assert written >= int(cnt[:5].sum())
+            else:
+                assert written == int(cnt[:4].sum())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "kw,channels",
     [(dict(), 3), (dict(tile_capacity=256, chunk=64), 3), (dict(tile_capacity=256), 1),
-     (dict(tile_size=32), 3), (dict(tile_size=32, chunk=64), 3)],
+     (dict(tile_size=32), 3), (dict(tile_size=32, chunk=64), 3),
+     (dict(tile_size=12, tile_capacity=256, chunk=64), 3)],
     ids=["cap1024-chunk128", "cap256-chunk64", "one-channel", "tile32-chunk128",
-         "tile32-chunk64"],
+         "tile32-chunk64", "tile12-chunk64"],
 )
 def test_table_kernels_match_plain_on_card(card, kw, channels):
     """B6 within 1e-5 (image, final T, checkpoints) and B7 within 1e-4 of
     the largest value per table column, against their plain versions, with a
-    cotangent on the final T too, and two B7 runs bit-equal; tiles of 32 x
-    32 pixels at chunk 128 and 64, walked in 4 parts (the full-size checks
-    are chip_smoke.py's)."""
+    cotangent on the final T too, and two runs of each bit-equal; tiles of
+    32 x 32 pixels at chunk 128 and 64, walked in 4 parts, and of 12 x 12
+    pixels (144 on 160 lanes: idle lanes) (the full-size checks are
+    chip_smoke.py's)."""
     import numpy as np
 
     from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, binning, pallas_impl
@@ -145,6 +186,8 @@ def test_table_kernels_match_plain_on_card(card, kw, channels):
     fwd = pallas_impl.composite_table_fwd_cuda(**args)
     for a, r in zip(fwd, pallas_impl.composite_table_fwd_plain(**args)):
         assert float((a - r).abs().max()) <= 1e-5
+    again = pallas_impl.composite_table_fwd_cuda(**args)
+    assert all(torch.equal(a, b) for a, b in zip(fwd, again))
     _, tfin, tchk = fwd
     rows, p = args["table"].shape[0], cfg.tile_size ** 2
     rng = np.random.default_rng(1)

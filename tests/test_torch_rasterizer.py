@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 from pf3plat_tpu.ops.rasterizer import RasterizeConfig as JCfg
 from pf3plat_tpu.ops.rasterizer import render as j_render
@@ -190,6 +191,58 @@ class TestCompactB1:
         np.testing.assert_array_equal(n(tc["ids"]), n(jc["ids"]))
         jf = np.stack([np.asarray(f) for f in jc["feats"]])
         np.testing.assert_array_equal(n(tc["feats"]).view(np.int32), jf.view(np.int32))
+
+    @pytest.mark.parametrize("k", [1, 3])
+    @pytest.mark.parametrize("slack", [0, -128], ids=["budget_fit", "budget_fit-128"])
+    def test_boundary_budgets_bit_exact_vs_jax(self, k, slack):
+        """At `budget_fit`, the smallest budget at which window k (512 rows)
+        is still appended, window k is appended; at `budget_fit - 128` it
+        and every later window are dropped: the plain version against JAX
+        `compact_pairs(..., budget_override=)`, bit for bit. (JAX refuses a
+        budget below window + 128, so window 0 always fits.)"""
+        shape = (48, 64)
+        tcfg, jcfg, scene = _compact_case(1.0, 23, 400)
+        tscr, jscr = _screens(scene, shape, tcfg, jcfg)
+        tscr = type(tscr)(*(t(np.asarray(f)) for f in jscr))
+        cand = tcompact.build_candidates(tscr, shape, tcfg)
+        window = tcfg.compact_window
+        valid = torch.zeros(-(-cand["valid"].numel() // window) * window, dtype=torch.int64)
+        valid[: cand["valid"].numel()] = cand["valid"].long()
+        prefix = torch.cumsum(valid.view(-1, window).sum(1), 0)
+        assert prefix.numel() > k + 1
+        before = int(prefix[k - 1])
+        budget = (before // 128) * 128 + window + 128 + slack
+        jc = jcompact.compact_pairs(jscr, shape, jcfg, budget_override=budget)
+        tc = tcompact.compact_pairs(tscr, shape, tcfg, budget_override=budget)
+        if slack:
+            assert int(tc["written"]) == before
+        else:
+            assert int(tc["written"]) >= int(prefix[k]) > before
+        assert int(tc["written"]) == int(jc["written"])
+        assert int(tc["total"]) == int(jc["total"]) == int(prefix[-1])
+        for key in ("tile", "dkey", "ids"):
+            np.testing.assert_array_equal(n(tc[key]), n(jc[key]))
+        jf = np.stack([np.asarray(f) for f in jc["feats"]])
+        np.testing.assert_array_equal(n(tc["feats"]).view(np.int32), jf.view(np.int32))
+
+    @settings(max_examples=300, deadline=None, derandomize=True, database=None)
+    @given(data=st.data())
+    def test_fit_rule_never_trims_on_whole_blocks(self, data):
+        """With window and budget multiples of 128, the overflow rule never
+        trims the last appended window's sub-128 remainder: the rows written
+        are all the valid rows of the appended windows (the invariant kernel
+        B1 relies on). The budget ranges around what the windows hold."""
+        window = 128 * data.draw(st.integers(1, 40), label="window / 128")
+        cnt = data.draw(st.lists(st.integers(0, window), min_size=1, max_size=40), label="counts")
+        top = -(-(sum(cnt) + 2 * window) // 128)
+        budget = 128 * data.draw(st.integers(0, top), label="budget / 128")
+        n_fit, written, total = tcompact.window_fit(torch.tensor(cnt, dtype=torch.int64),
+                                                    budget, window)
+        assert written == sum(cnt[:n_fit])
+        assert written <= budget and total == sum(cnt)
+        assert all((sum(cnt[:j]) // 128) * 128 + window + 128 <= budget for j in range(n_fit))
+        if n_fit < len(cnt):
+            assert (sum(cnt[:n_fit]) // 128) * 128 + window + 128 > budget
 
     def test_budget_formula(self):
         for factor in (0.0, 0.3, 0.48, 1.0):

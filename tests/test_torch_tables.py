@@ -145,10 +145,16 @@ class TestImages:
     @pytest.mark.parametrize("impl", ["tiled", "pallas"])
     @pytest.mark.parametrize(
         "kw,shape,seed",
-        [(dict(), (32, 48), 6), (dict(tile_size=32), (40, 64), 288)],
-        ids=["ts16-cap256-chunk64", "ts32-cap256-chunk64"],
+        [(dict(), (32, 48), 6), (dict(tile_size=32), (40, 64), 288),
+         (dict(tile_size=12), (36, 60), 6), (dict(tile_size=20), (40, 60), 6)],
+        ids=["ts16-cap256-chunk64", "ts32-cap256-chunk64", "ts12-cap256-chunk64",
+             "ts20-cap256-chunk64"],
     )
     def test_render_matches_jax(self, impl, kw, shape, seed):
+        """The port's render against the JAX package's (its Pallas kernels in
+        interpret mode for `pallas`), also at tiles of 144 and 400 pixels, no
+        multiple of 32, which the JAX path takes and kernels B6 and B7 take
+        with idle lanes."""
         tcfg, jcfg = _cfg(**kw)
         rng = np.random.default_rng(seed)
         scene = make_scene_np(rng, n=80, b=2)
