@@ -11,11 +11,17 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # (measurement builds)
     python3 chip_smoke.py --fwd-ablations  # where kernels B2's and B6's
                                      # time goes (measurement builds)
+    python3 chip_smoke.py --main     # build, one training step of record,
+                                     # then phases main_train and trace only
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
   1. device  - GPU name and power limit (nvidia-smi), build of the nine
                kernel libraries;
+     env     - what the machine offers the port: Python, torch and CUDA
+               versions, which of PIL, yaml, safetensors, orbax, numpy,
+               scipy, triton, einops import and their versions, g++,
+               nvJPEG's library and header, host cores and memory;
   2. b1..b7_bench - the hand-written kernels (compact_pairs = B1,
                composite_fwd = B2, composite_bwd = B3, dup_reduce = B4,
                composite_bwd_blocks = B5, table_fwd = B6, table_bwd = B7)
@@ -92,7 +98,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                config (shard-local: B1-B4 four times a step); then b1..b7 on
                the warm-up step's own render inputs (9 cameras of 131,072
                gaussians);
-  7. the kernels line, the nvidia-smi line, and the final
+  7. main_train - the training entry point, `main([...])` as
+               `python -m pf3plat_tpu_torch.main` runs it, on
+               configs/re10k.yaml at full width (b=3: the published
+               single-GPU protocol; everything else as the config says) over
+               synthetic chunks from numpy seed 0 in build/main_data (a
+               `.pfchunk` root and a `.torch` root, 2 chunks x 2 scenes x 80
+               frames of 360 x 640 JPEGs): run A trains 4 steps with
+               validation and checkpoints every 2 steps (keep 2), run B
+               resumes it for a fifth. Per step: ms, the ms the loop waited
+               for its batch (data_wait_ms), the stage split by CUDA events,
+               peak memory, launches. Gates: finite losses; step 1's loss
+               equal to a direct make_model_train_step call on the batch main
+               drew with the same generator (1e-5 relative); checkpoints 2
+               and 4, `frozen/` once; validation folders of steps 0, 2, 4
+               with comparison.png and wobble.gif; 4 log rows; launches per
+               step equal to the train phase's; run B resumed from step 4
+               with the saved tensors bit for bit and one finite step;
+     trace   - in a child process (`--trace-child`): torch.profiler windows
+               over two warm steps of main's loop and one serving request;
+               per window device-busy ms against wall ms (the idle share)
+               and the ten operations with the most device time, traces
+               under build/traces/; fails on a window without device
+               events. `late_probe`: one short session in this process;
+  8. the kernels line, the nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
 
 It imports nothing of JAX. Without CUDA, or outside a checkout of the
@@ -1586,24 +1615,35 @@ def mesh_render(scene, mesh):
                                  f"unsharded one: image {img_err}, gradients {errs}")
 
 
-def model_config(impl: str = "streamed", raster=None):
+def model_config(impl: str = "streamed", raster=None, config: str = "re10k.yaml"):
+    """The model of `configs/<config>` through the port's own config loader
+    and `main.model_config` (the configs' model: UniDepth ViT-L/14, 128
+    depth candidates, SH degree 4, 1024 keypoints / 512 matches / 9 LightGlue
+    layers, `DecoderCfg()` = `streamed` with the production rasterizer
+    config); `impl` picks the decoder backend, `raster` (if given) its
+    rasterizer config."""
+    from pf3plat_tpu_torch.main import model_config as main_model_config
     from pf3plat_tpu_torch.models.backbones.unidepth import UniDepthCfg
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG, DecoderCfg
     from pf3plat_tpu_torch.models.encoder import EncoderCfg
     from pf3plat_tpu_torch.models.gaussian_adapter import GaussianAdapterCfg
     from pf3plat_tpu_torch.models.pf3plat import PF3platCfg
+    from pf3plat_tpu_torch.utils.config import load_config
 
-    # configs/re10k.yaml and re10k_test.yaml through main.build_model:
-    # EncoderCfg() with 128 depth candidates and SH degree 4, DecoderCfg()
-    # (production rasterizer config unless `raster` is given; `impl` picks
-    # the backend, "streamed" being the configs' own), UniDepthCfg() = ViT-L/14.
-    return PF3platCfg(
+    cfg = load_config(REPO / "configs" / config)
+    decoder = DecoderCfg(impl=impl, raster=raster or cfg.decoder.raster)
+    got = dataclasses.replace(main_model_config(cfg), decoder=decoder)
+    # the fields this script set by hand before it read the config files
+    want = PF3platCfg(
         encoder=EncoderCfg(num_depth_candidates=128,
                            gaussian_adapter=GaussianAdapterCfg(sh_degree=4)),
         decoder=DecoderCfg(impl=impl, raster=raster or PRODUCTION_CONFIG),
         unidepth=UniDepthCfg(),
         max_keypoints=1024, max_matches=512, lightglue_layers=9,
     )
+    if got != want:
+        raise AssertionError(f"configs/{config} gives {got}, not the model of record {want}")
+    return got
 
 
 def vit_attention_shape(cfg, views: int, image_shape):
@@ -1672,7 +1712,7 @@ def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset())
 
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
-    model = PF3plat(model_config(impl), device="cuda")
+    model = PF3plat(model_config(impl, config="re10k_test.yaml"), device="cuda")
     build_s = time.perf_counter() - t0
     rng = np.random.default_rng(SEED)
     b, v, h, w = 1, 5, 256, 256
@@ -1936,6 +1976,510 @@ def depth_phase(captured, config):
               backends_mean_abs_diff=float((a - c).abs().mean())))
 
 
+def env_inventory() -> dict:
+    """What the machine offers the port: versions, which Python packages
+    import (and their versions), the host compiler, nvJPEG's library and
+    header, host cores and memory."""
+    import importlib
+    import os
+    import platform
+    import shutil
+
+    import torch
+
+    imports = {}
+    for name in ("PIL", "yaml", "safetensors", "orbax.checkpoint", "numpy", "scipy",
+                 "triton", "einops"):
+        try:
+            mod = importlib.import_module(name)
+            imports[name] = getattr(mod, "__version__", True)
+        except ImportError:
+            imports[name] = False
+    gxx = shutil.which("g++")
+    if gxx:
+        gxx = subprocess.run([gxx, "--version"], capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+    meminfo = Path("/proc/meminfo")
+    mem_kib = (int(meminfo.read_text().split("MemTotal:")[1].split()[0])
+               if meminfo.exists() else None)
+    cuda = Path("/usr/local/cuda")
+    return dict(phase="env", python=platform.python_version(), torch=torch.__version__,
+                cuda=torch.version.cuda, imports=imports, gxx=gxx,
+                nvjpeg_libs=sorted(p.name for p in (cuda / "lib64").glob("libnvjpeg.so*")),
+                nvjpeg_header=(cuda / "include" / "nvjpeg.h").exists(),
+                host_cores=os.cpu_count(),
+                host_memory_gib=None if mem_kib is None else mem_kib / 2**20)
+
+
+# The training entry point's runs (phase main_train): synthetic RE10K-shaped
+# chunks, checkpoints and run outputs under build/.
+MAIN_DATA = REPO / "build" / "main_data"
+MAIN_CKPT = REPO / "build" / "main_ckpt"
+MAIN_OUT = REPO / "build" / "main_out"
+TRACE_DIR = REPO / "build" / "traces"
+# frames per scene: re10k.yaml's context gap is 75
+MAIN_FRAMES = 80
+# RE10K's original_image_shape, JPEG quality
+MAIN_IMAGE = (360, 640)
+MAIN_JPEG_QUALITY = 90
+# the first step through `main` against a direct `make_model_train_step`
+# call on the same batch, parameters and generator: relative, on the loss
+TOL_MAIN_STEP = 1e-5
+MAIN_REDUCED = ["data_loader.batch_size 14 -> 3 (the published single-GPU protocol, "
+                "re10k.yaml:26-34)", "max_steps 300001 -> 4 (run A) / 5 (run B)",
+                "train.val_check_interval 500 -> 2", "checkpointing.every_n_steps 10000 -> 2",
+                "checkpointing.keep 5 -> 2"]
+
+
+def write_main_data(root: Path) -> list[Path]:
+    """Two dataset roots of synthetic RE10K-shaped scenes from numpy seed 0,
+    one of `.pfchunk` files (the port's `write_pfchunk`) and one of `.torch`
+    chunks: `train/` with 2 chunks x 2 scenes x 80 frames of 360 x 640
+    JPEGs (quality 90), a smooth texture panned across the frames with
+    camera rows to match (normalised fx 0.86, fy 1.53, the camera moving
+    0.02 a frame along x)."""
+    import io
+    import shutil
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pf3plat_tpu_torch.native import write_pfchunk
+
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(SEED)
+    h, w = MAIN_IMAGE
+    shift = 4  # pixels a frame
+    roots = [root / "pfchunk", root / "torch"]
+    for kind, r in zip(("pfchunk", "torch"), roots):
+        (r / "train").mkdir(parents=True)
+        for c in range(2):
+            scenes = []
+            for s in range(2):
+                small = (rng.uniform(0, 255, (h // 8, (w + shift * MAIN_FRAMES) // 8, 3))
+                         .astype(np.uint8))
+                tex = np.asarray(Image.fromarray(small).resize(
+                    (w + shift * MAIN_FRAMES, h), Image.BICUBIC), np.float32)
+                tex += rng.normal(0, 6, tex.shape)
+                tex = np.clip(tex, 0, 255).astype(np.uint8)
+                cams = np.zeros((MAIN_FRAMES, 18), np.float32)
+                cams[:, :4] = [0.86, 1.53, 0.5, 0.5]
+                frames = []
+                for f in range(MAIN_FRAMES):
+                    w2c = np.eye(4, dtype=np.float32)
+                    w2c[0, 3] = -0.02 * f
+                    cams[f, 6:] = w2c[:3].reshape(-1)
+                    buf = io.BytesIO()
+                    Image.fromarray(tex[:, f * shift:f * shift + w]).save(
+                        buf, format="JPEG", quality=MAIN_JPEG_QUALITY)
+                    frames.append(buf.getvalue())
+                scenes.append({"key": f"{kind}_{c}_{s}", "cameras": cams, "images": frames})
+            if kind == "pfchunk":
+                write_pfchunk(r / "train" / f"{c:06}.pfchunk", scenes)
+            else:
+                torch.save([{"key": sc["key"], "cameras": torch.from_numpy(sc["cameras"]),
+                             "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8)
+                                        for b in sc["images"]]} for sc in scenes],
+                           r / "train" / f"{c:06}.torch")
+    return roots
+
+
+def main_argv(roots, max_steps: int, ckpt: Path, out: Path, *extra) -> list[str]:
+    """`main`'s argv for the runs of record: configs/re10k.yaml at b=3."""
+    return [str(REPO / "configs" / "re10k.yaml"),
+            "dataset.roots=" + json.dumps([str(r) for r in roots]),
+            "data_loader.batch_size=3", f"max_steps={max_steps}",
+            "train.val_check_interval=2", "checkpointing.every_n_steps=2",
+            "checkpointing.keep=2", f'checkpointing.directory="{ckpt}"',
+            f'output_dir="{out}"', f'test.output_path="{out}/test/x"', *extra]
+
+
+class Tee:
+    """A stdout that also keeps what was written."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.stream.write(text)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+@contextlib.contextmanager
+def instrument_main(on_call=None, after_call=None, timed: bool = True):
+    """Record what `main` does inside the block: each train-step call
+    (launches of every kernel; with `timed`, also host ms, the stage split
+    by CUDA events, peak memory and the loss) and each wait for the next
+    batch (`data_wait_ms`). `on_call(index, model, state, batch, kwargs)`
+    runs before a step, `after_call(index)` after it. Patches
+    `training.train.make_model_train_step` and `main.batch_iterator`, which
+    `main.run_train` looks up when it runs."""
+    import torch
+
+    import pf3plat_tpu_torch.main as port_main
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training import train as train_mod
+
+    rec = {"steps": [], "data_wait_ms": []}
+    make_step, batch_iterator = train_mod.make_model_train_step, port_main.batch_iterator
+    stages = ("perceive", "encoder", "decoder", "loss", "backward", "optimizer")
+
+    def recording_make_step(model, *args, **kwargs):
+        step = make_step(model, *args, **kwargs)
+
+        def instrumented(state, batch, **kw):
+            index = len(rec["steps"])
+            if on_call is not None:
+                on_call(index, model, state, batch, kw)
+            before = dict(kernels.LAUNCHES)
+            if not timed:
+                state, aux = step(state, batch, **kw)
+                rec["steps"].append(dict(step=state.step, launches={
+                    k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}))
+                if after_call is not None:
+                    after_call(index)
+                return state, aux
+            events = {"start": torch.cuda.Event(enable_timing=True)}
+
+            def timer(stage):
+                events[stage] = torch.cuda.Event(enable_timing=True)
+                events[stage].record()
+
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            wall0 = time.perf_counter()
+            events["start"].record()
+            state, aux = step(state, batch, timer=timer, **kw)
+            torch.cuda.synchronize()
+            row = dict(step=state.step, ms=(time.perf_counter() - wall0) * 1e3,
+                       views=int(batch["context"]["image"].shape[1]),
+                       launches={k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES},
+                       max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+            prev = "start"
+            for stage in stages:
+                row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
+                prev = stage
+            row.update(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]))
+            rec["steps"].append(row)
+            if after_call is not None:
+                after_call(index)
+            return state, aux
+
+        return instrumented
+
+    def timed_batches(*args, **kwargs):
+        it = batch_iterator(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            rec["data_wait_ms"].append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    train_mod.make_model_train_step = recording_make_step
+    port_main.batch_iterator = timed_batches
+    try:
+        yield rec
+    finally:
+        train_mod.make_model_train_step = make_step
+        port_main.batch_iterator = batch_iterator
+
+
+def run_main(argv) -> str:
+    """`python -m pf3plat_tpu_torch.main <argv>` in this process; returns
+    what it printed."""
+    from pf3plat_tpu_torch import main as port_main
+
+    tee = Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        port_main.main(argv)
+    return tee.text()
+
+
+def main_train(train_per_step: dict) -> dict:
+    """The training entry point at full width (configs/re10k.yaml, b=3,
+    256 x 256, UniDepth ViT-L, 128 depth candidates, SH degree 4,
+    PRODUCTION_CONFIG) on synthetic chunks of both formats. Run A trains 4
+    steps with validation every 2 and checkpoints every 2 (keep 2); run B
+    resumes it for a fifth step. `train_per_step`: the `train` phase's
+    launches per step, which every step through `main` must repeat.
+    Returns the per-kernel launches of one step through `main`."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch import main as port_main
+    from pf3plat_tpu_torch.training import train as train_mod
+    from pf3plat_tpu_torch.training.train import OptState, TrainState
+    from pf3plat_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    roots = write_main_data(MAIN_DATA)
+    data_s = time.perf_counter() - t0
+    for d in (MAIN_CKPT, MAIN_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+
+    # run A
+    first = {}
+
+    def keep_first(index, model, state, batch, kw):
+        if index == 0:
+            # on the host, so the copy does not count in the steps' peak memory
+            first.update(model={k: v.detach().to("cpu", copy=True)
+                                for k, v in model.state_dict().items()},
+                         batch=batch, generator=kw["generator"].get_state(), step=state.step)
+
+    argv_a = main_argv(roots, 4, MAIN_CKPT, MAIN_OUT)
+    t0 = time.perf_counter()
+    with instrument_main(keep_first) as rec_a:
+        out_a = run_main(argv_a)
+    run_a_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    steps = rec_a["steps"]
+    for i, row in enumerate(steps):  # batch k was waited for before step k
+        row["data_wait_ms"] = rec_a["data_wait_ms"][i]
+    losses = [r["loss"] for r in steps]
+    if len(steps) != 4 or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"main_train run A: {len(steps)} steps, losses {losses}")
+    if "failed" in out_a:
+        raise AssertionError("main_train run A: a validation failed:\n" + out_a[-2000:])
+
+    # step 1 again through a direct make_model_train_step call: the batch
+    # main drew, the model as it was, the same generator state
+    cfg = load_config(argv_a[0], argv_a[1:])
+    model = port_main.build_model(cfg, "cuda")
+    model.load_state_dict(first.pop("model"))
+    params = list(model.encoder.parameters())
+    state = TrainState(params, OptState(0, [torch.zeros_like(p) for p in params],
+                                        [torch.zeros_like(p) for p in params], 0), first["step"])
+    gen = torch.Generator(device="cuda")
+    gen.set_state(first["generator"])
+    _, aux = train_mod.make_model_train_step(model, cfg.loss, cfg.optimizer)(
+        state, first.pop("batch"), generator=gen)
+    direct = float(aux["loss"])
+    step1_rel = abs(direct - losses[0]) / abs(losses[0])
+    del model, state, params, aux
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not step1_rel <= TOL_MAIN_STEP:
+        raise AssertionError(f"main_train: step 1's loss {losses[0]} through main against "
+                             f"{direct} directly: {step1_rel} > {TOL_MAIN_STEP}")
+
+    ckpts = sorted(int(p.name) for p in (MAIN_CKPT / "state").iterdir())
+    frozen = sorted(p.name for p in MAIN_CKPT.iterdir() if p.name.startswith("frozen"))
+    if ckpts != [2, 4] or frozen != ["frozen"]:
+        raise AssertionError(f"main_train run A: checkpoints {ckpts}, frozen dirs {frozen}")
+    val_dir = MAIN_OUT / "test" / "validation"
+    val_steps = sorted(p.name for p in val_dir.iterdir())
+    missing = [f"{d}/{f}" for d in ("step_0000000", "step_0000002", "step_0000004")
+               for f in ("comparison.png", "wobble.gif") if not (val_dir / d / f).exists()]
+    if missing:
+        raise AssertionError(f"main_train run A: validation artifacts missing: {missing} "
+                             f"(folders {val_steps})")
+    log_rows = (MAIN_OUT / "scalars.jsonl").read_text().splitlines()
+    if len(log_rows) != 4:
+        raise AssertionError(f"main_train run A: {len(log_rows)} log rows, want 4")
+    per_step = steps[0]["launches"]
+    wrong = [(i + 1, k, r["launches"][k], n) for i, r in enumerate(steps)
+             for k, n in train_per_step.items() if r["launches"][k] != n]
+    if wrong:
+        raise AssertionError(f"main_train: launches per step through main (step, kernel, "
+                             f"got, train phase) {wrong}")
+
+    # run B: the same run resumed for one more step
+    saved = torch.load(MAIN_CKPT / "state" / "4" / "state.pt", map_location="cpu",
+                       weights_only=True)
+    restored = {}
+
+    def check_restored(index, model, state, batch, kw):
+        if index == 0:
+            got = state.params + state.opt_state.mu + state.opt_state.nu
+            want = saved["params"] + saved["mu"] + saved["nu"]
+            restored.update(
+                tensors_bit_equal=len(got) == len(want) and all(
+                    torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                count=(state.opt_state.count, saved["count"]),
+                step=(state.step, saved["step"]),
+                notfinite_count=(state.opt_state.notfinite_count, saved["notfinite_count"]))
+
+    t0 = time.perf_counter()
+    with instrument_main(check_restored) as rec_b:
+        out_b = run_main(main_argv(roots, 5, MAIN_CKPT, MAIN_OUT))
+    run_b_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    if "resumed from step 4" not in out_b:
+        raise AssertionError("main_train run B: no 'resumed from step 4' in its output")
+    if not (restored.get("tensors_bit_equal") and all(
+            a == b for a, b in (restored[k] for k in ("count", "step", "notfinite_count")))):
+        raise AssertionError(f"main_train run B: restored state differs from run A's "
+                             f"step-4 checkpoint: {restored}")
+    steps_b = rec_b["steps"]
+    if len(steps_b) != 1 or not math.isfinite(steps_b[0]["loss"]):
+        raise AssertionError(f"main_train run B: steps {steps_b}")
+    steps_b[0]["data_wait_ms"] = rec_b["data_wait_ms"][0]
+
+    emit(dict(phase="main_train", config="configs/re10k.yaml", reduced=MAIN_REDUCED,
+              batch=[3, steps[0]["views"], 256, 256], data_s=data_s,
+              data=[f"{r.name}: 2 chunks x 2 scenes x {MAIN_FRAMES} frames of "
+                    f"{MAIN_IMAGE[0]}x{MAIN_IMAGE[1]} JPEG q{MAIN_JPEG_QUALITY}" for r in roots],
+              run_a_s=run_a_s, run_b_s=run_b_s,
+              steps=[{k: v for k, v in r.items() if k != "launches"} for r in steps],
+              resumed_step=[{k: v for k, v in r.items() if k != "launches"} for r in steps_b],
+              launches_per_step=per_step, train_phase_per_step=train_per_step,
+              step1_loss_main=losses[0], step1_loss_direct=direct, step1_rel_diff=step1_rel,
+              tol=TOL_MAIN_STEP, checkpoints=ckpts, validation=val_steps,
+              log_rows=len(log_rows), restored=restored,
+              data_wait_ms_mean=float(np.mean([r["data_wait_ms"] for r in steps[1:]]))))
+    return per_step
+
+
+def trace_window(log_dir: Path, window: str) -> dict:
+    """Device-busy ms against wall ms of one traced window, and its ten
+    operations with the most device time."""
+    from pf3plat_tpu_torch.utils import profiling
+
+    busy = profiling.device_busy(log_dir, window=window)
+    top = profiling.device_op_breakdown(log_dir, top=10, window=window)
+    return dict(busy_ms=busy["busy_us"] / 1e3, wall_ms=busy["wall_us"] / 1e3,
+                idle_share=busy["idle_share"], device_events=busy["device_events"],
+                launch_lead_min_us=busy["launch_lead_min_us"],
+                negative_leads=busy["negative_leads"],
+                negative_lead_ms=busy["negative_lead_us"] / 1e3,
+                top_ops=[dict(name=r["name"][:100], ms=r["total_us"] / 1e3, count=r["count"],
+                              launched_by=r["launched_by"]) for r in top])
+
+
+def trace_child(out_path: Path) -> int:
+    """The traced windows, run in a fresh process (`--trace-child`): two warm
+    steps of `main`'s loop (steps 2 and 3 of a 3-step run of
+    configs/re10k.yaml at b=3 on the main_train data) and one serving
+    request of the `serve` phase's model (after a warm-up request). Writes
+    {window: trace_window(...)} to `out_path`."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.utils import profiling
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    shutil.rmtree(TRACE_DIR, ignore_errors=True)
+    seconds = {}
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
+    rng = np.random.default_rng(SEED)
+    b, v, h, w = 1, SERVE_VIEWS, 256, 256
+    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
+    intr = torch.as_tensor(np.broadcast_to(
+        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
+        device="cuda")
+    near, far = torch.ones((b, v), device="cuda"), torch.full((b, v), 100.0, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    stack = contextlib.ExitStack()
+
+    def open_window(index, model_, state, batch, kw):
+        if index == 1:  # steps 2 and 3: the loop's warm steps
+            stack.enter_context(profiling.trace(TRACE_DIR / "main_train", window="main_train"))
+
+    def close_window(index):
+        if index == 2:
+            stack.close()
+
+    ckpt, out = REPO / "build" / "trace_ckpt", REPO / "build" / "trace_out"
+    for d in (ckpt, out):
+        shutil.rmtree(d, ignore_errors=True)
+    roots = [MAIN_DATA / "pfchunk", MAIN_DATA / "torch"]
+    seconds["serve_model"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # untimed: no synchronisation or events of this script inside the window
+    with instrument_main(open_window, close_window, timed=False) as rec:
+        run_main(main_argv(roots, 3, ckpt, out, "train.sanity_validation=false",
+                           "train.val_check_interval=1000", "checkpointing.every_n_steps=1000"))
+    seconds["main"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        model(images, intr, near, far, 0, generator=gen)  # warm-up
+        with profiling.trace(TRACE_DIR / "serve", window="serve"):
+            model(images, intr, near, far, 0, generator=gen)
+    seconds["serve"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = {"main_train": trace_window(TRACE_DIR / "main_train", "main_train"),
+              "serve": trace_window(TRACE_DIR / "serve", "serve")}
+    seconds["analysis"] = time.perf_counter() - t0
+    result.update(seconds=seconds, data_wait_ms=rec["data_wait_ms"])
+    out_path.write_text(json.dumps(result))
+    return 0
+
+
+def trace_phase() -> None:
+    """Phase `trace`: the traced windows in a child process (a fresh
+    process: `torch.profiler` stamps device activity by a clock that drifts
+    from the host's over a long process's life, and drops what it places
+    before its session's start; `late_probe` shows that in this process).
+    Fails if the child fails or a window holds no device event."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import compact
+    from pf3plat_tpu_torch.utils import profiling
+
+    out_path = REPO / "build" / "trace_child.json"
+    out_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-child",
+                           str(out_path)], capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if proc.returncode != 0 or not out_path.exists():
+        raise AssertionError(f"trace: child exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    result = json.loads(out_path.read_text())
+    empty = [k for k in ("main_train", "serve") if result[k]["device_events"] == 0]
+    if empty:
+        raise AssertionError(f"trace: no device events in the window(s) {empty}")
+
+    # the same kind of session in this long-lived process: one B1 call and
+    # one matmul (3 kernels and 1 memset on the card)
+    n = 1 << 20
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    cand = dict(valid=torch.rand(n, device="cuda", generator=gen) < 0.5,
+                tile=torch.randint(0, 1000, (n,), device="cuda", dtype=torch.int32,
+                                   generator=gen),
+                dkey=torch.randint(0, 1000, (n,), device="cuda", dtype=torch.int32,
+                                   generator=gen),
+                pid=torch.arange(n, device="cuda", dtype=torch.int32),
+                feats=torch.randn((9, n), device="cuda", generator=gen))
+    a = torch.randn((2048, 2048), device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    probe_dir = TRACE_DIR / "late_probe"
+    with profiling.trace(probe_dir, window="late_probe"):
+        a @ a
+        compact.compact_candidates_cuda(cand, n // 2, 4096)
+    probe = profiling.device_busy(probe_dir, window="late_probe")
+    emit(dict(phase="trace", child_s=child_s, traces=str(TRACE_DIR.relative_to(REPO)),
+              main_train=result["main_train"], serve=result["serve"],
+              main_train_data_wait_ms=result["data_wait_ms"], child_seconds=result["seconds"],
+              late_probe=dict(device_events=probe["device_events"], expected=4,
+                              busy_ms=probe["busy_us"] / 1e3, wall_ms=probe["wall_us"] / 1e3,
+                              launch_lead_min_us=probe["launch_lead_min_us"],
+                              negative_leads=probe["negative_leads"])))
+
+
 KERNEL_META = {
     "compact_pairs": ("pf3plat_tpu_torch/csrc/compact_pairs.cu",
                       "pf3plat_tpu/ops/rasterizer/compact.py:87"),
@@ -1968,6 +2512,8 @@ def main(argv) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    if argv[:1] == ["--trace-child"]:
+        return trace_child(Path(argv[1]))
     LOG.unlink(missing_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1988,6 +2534,16 @@ def main(argv) -> int:
             for k, v in build["ptxas"].items()}
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
+    emit(env_inventory())
+    if "--main" in argv:
+        # the training entry point alone: the train phase's launches per
+        # step (one streamed step of record), main_train, trace
+        _, launches, _, _ = train("streamed")
+        main_train({k: n // 2 for k, n in launches.items()})
+        torch.cuda.empty_cache()
+        trace_phase()
+        print(smi, flush=True)
+        return 0
 
     if "--attention-ablations" in argv:
         attention_ablations()
@@ -2066,6 +2622,8 @@ def main(argv) -> int:
     # warm-up step's own render inputs.
     _, launches_p, trace_p, _ = train("pallas")
     captured, launches, _, attn_shapes = train("streamed")
+    # launches per step of the streamed path (train's 2 timed steps)
+    train_per_step = {k: n // 2 for k, n in launches.items()}
     launches.update({k: launches_p[k] for k in TRAIN_KERNELS["pallas"]})
     # the attention kernels were timed at shapes the training step really uses
     if not {ATTN_POSE_SHAPE, ATTN_DEPTH_SHAPE, vit_shape} <= attn_shapes:
@@ -2117,6 +2675,14 @@ def main(argv) -> int:
         screen, shape, scene["background"], config, "train", regs)
     rows["composite_bwd_blocks"] = check_b5(screen, shape, scene["background"],
                                             RasterizeConfig(), "train")
+    del scene, screen, captured
+    torch.cuda.empty_cache()
+
+    # The training entry point at full width, its resume, then the traced
+    # windows (main's loop, a serving request) in a child process.
+    main_per_step = main_train(train_per_step)
+    torch.cuda.empty_cache()
+    trace_phase()
     # the attention kernels at the pose-stack shape (forward and backward of
     # a training step); the ViT shape's rows are the attn_*_vit lines
     rows["attention_fwd"], rows["attention_bwd"] = attn_pose
@@ -2129,6 +2695,7 @@ def main(argv) -> int:
         r = rows[name]
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches[name], launches_serve=serve_launches.get(name, 0),
+                         launches_main_per_step=main_per_step[name],
                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"],
                          # the SFU's exponentials are operations of the card too

@@ -1,7 +1,7 @@
 """Rotation / rigid-transform utilities on torch tensors.
 
-Port of `pf3plat_tpu/geometry/transforms.py` (the serving path's part and
-the pose metrics' angles).
+Port of `pf3plat_tpu/geometry/transforms.py` (the serving path's part, the
+pose metrics' angles and `matrix_to_quaternion` for the trajectories).
 """
 
 from __future__ import annotations
@@ -51,6 +51,32 @@ def quaternion_to_matrix(q: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     row1 = torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1)
     row2 = torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1)
     return torch.stack([row0, row1, row2], dim=-2)
+
+
+def matrix_to_quaternion(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (wxyz), branch-free (Shepperd /
+    max-trace): all four candidate solutions, the best by its magnitude,
+    sign canonical (w >= 0)."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+
+    qw2 = torch.clamp(1 + m00 + m11 + m22, min=0.0)
+    qx2 = torch.clamp(1 + m00 - m11 - m22, min=0.0)
+    qy2 = torch.clamp(1 - m00 + m11 - m22, min=0.0)
+    qz2 = torch.clamp(1 - m00 - m11 + m22, min=0.0)
+
+    # candidate quaternions, each scaled by 4 * its largest component
+    cands = torch.stack([
+        torch.stack([qw2, m21 - m12, m02 - m20, m10 - m01], dim=-1),
+        torch.stack([m21 - m12, qx2, m01 + m10, m02 + m20], dim=-1),
+        torch.stack([m02 - m20, m01 + m10, qy2, m12 + m21], dim=-1),
+        torch.stack([m10 - m01, m02 + m20, m12 + m21, qz2], dim=-1),
+    ], dim=-2)
+    best = torch.argmax(torch.stack([qw2, qx2, qy2, qz2], dim=-1), dim=-1)
+    idx = best[..., None, None].expand(*best.shape, 1, 4)
+    q = _normalize(torch.gather(cands, -2, idx)[..., 0, :], 1e-12)
+    return q * torch.where(q[..., :1] < 0, -1.0, 1.0)
 
 
 def make_rt(r: torch.Tensor, t: torch.Tensor) -> torch.Tensor:

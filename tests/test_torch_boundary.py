@@ -1,6 +1,6 @@
-"""Package boundary of the PyTorch port: it imports torch, numpy and scipy,
-never jax, flax, optax or anything of the JAX package; GPU-only checks of its
-kernels carry the `cuda` marker and skip without a card."""
+"""Package boundary of the PyTorch port: it imports torch, numpy, scipy, PIL
+and yaml, never jax, flax, optax or anything of the JAX package; GPU-only
+checks of its kernels carry the `cuda` marker and skip without a card."""
 
 from __future__ import annotations
 

@@ -24,6 +24,17 @@ def _no_tf32():
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
 
 
+@pytest.fixture
+def one_thread():
+    """One intra-op thread for model-sized CPU work: under `pytest -n` the
+    test processes share the cores, and torch's default of one thread per
+    core then oversubscribes them many times over."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
+
+
 def t(x, dtype=None):
     """numpy / jax array -> CPU torch tensor (float64 inputs become f32)."""
     a = np.asarray(x)
