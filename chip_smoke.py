@@ -12,7 +12,8 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --fwd-ablations  # where kernels B2's and B6's
                                      # time goes (measurement builds)
     python3 chip_smoke.py --main     # build, one training step of record,
-                                     # then phases main_train and trace only
+                                     # then phases main_train, main_test and
+                                     # trace only
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -82,6 +83,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                compared and the difference printed);
   5. depth   - `decode(..., depth_mode="depth")` on the served request's
                gaussians through both kernel backends;
+     perceive_precision - `PF3plat.perceive` on the serving request under
+               bf16 autocast (the default), in float32 ("highest") and in
+               float32 with bf16-rounded matmul / convolution operands (the
+               JAX package's rule): ms of each, depth, feature and match
+               differences from "highest";
   6. train   - the training step of record (configs/re10k.yaml: the same
                model, b=3, v=3 at 256x256 with the target stack = the
                context stack, LossCfg(), OptimizerCfg()), random weights from
@@ -98,6 +104,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
                config (shard-local: B1-B4 four times a step); then b1..b7 on
                the warm-up step's own render inputs (9 cameras of 131,072
                gaussians);
+     train_frozen - `make_train_step` (the step on precomputed frozen
+               inputs from `perceive`) on the same batch: one timed step
+               after a warm-up, B1-B4 once, loss and gradient norm equal to
+               `make_model_train_step`'s from the same parameters and
+               generator (1e-4 relative);
   7. main_train - the training entry point, `main([...])` as
                `python -m pf3plat_tpu_torch.main` runs it, on
                configs/re10k.yaml at full width (b=3: the published
@@ -115,6 +126,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
                with comparison.png and wobble.gif; 4 log rows; launches per
                step equal to the train phase's; run B resumed from step 4
                with the saved tensors bit for bit and one finite step;
+     main_test - the serving entry point, `main([...])` as `python -m
+               pf3plat_tpu_torch.main configs/re10k_test.yaml` runs it, at
+               full width over the test splits of the same data (8 scenes:
+               2 roots x 2 chunks x 2), restored from main_train's
+               checkpoints, through an evaluation index in the released
+               schema (context [i, i + 45], 3 targets, one null key), with
+               depth panels and 30-frame videos; the index generator's CLI
+               first on each root. Gates: the restore line; 8 finite scores;
+               benchmark.json's count 8 - 5; torch.cuda memory numbers;
+               every artifact; request 0's PSNR equal to a direct forward on
+               its batch and generator (1e-5 relative); launches per request
+               = the serve phase's plus one B1 and one B2 for each extra
+               render (depth, 2 x 5 video chunks). Per request: ms, launches;
+               the benchmark median, peak bytes, the first batch's wait;
      trace   - in a child process (`--trace-child`): torch.profiler windows
                over two warm steps of main's loop and one serving request;
                per window device-busy ms against wall ms (the idle share)
@@ -2025,6 +2050,16 @@ MAIN_JPEG_QUALITY = 90
 # the first step through `main` against a direct `make_model_train_step`
 # call on the same batch, parameters and generator: relative, on the loss
 TOL_MAIN_STEP = 1e-5
+# The serving entry point's run (phase main_test): outputs under build/.
+MAIN_TEST = REPO / "build" / "main_test"
+# request 0's PSNR through `main` against a direct forward on its batch,
+# parameters and generator, scored the same way: relative
+TOL_MAIN_TEST_PSNR = 1e-5
+# loss and gradient norm of `make_train_step` on precomputed frozen inputs
+# against `make_model_train_step` on the same batch, parameters and
+# generator: relative (the encoder's backward is not bit-reproducible, the
+# gate of the sharded step)
+TOL_TRAIN_FROZEN = 1e-4
 MAIN_REDUCED = ["data_loader.batch_size 14 -> 3 (the published single-GPU protocol, "
                 "re10k.yaml:26-34)", "max_steps 300001 -> 4 (run A) / 5 (run B)",
                 "train.val_check_interval 500 -> 2", "checkpointing.every_n_steps 10000 -> 2",
@@ -2034,10 +2069,12 @@ MAIN_REDUCED = ["data_loader.batch_size 14 -> 3 (the published single-GPU protoc
 def write_main_data(root: Path) -> list[Path]:
     """Two dataset roots of synthetic RE10K-shaped scenes from numpy seed 0,
     one of `.pfchunk` files (the port's `write_pfchunk`) and one of `.torch`
-    chunks: `train/` with 2 chunks x 2 scenes x 80 frames of 360 x 640
-    JPEGs (quality 90), a smooth texture panned across the frames with
-    camera rows to match (normalised fx 0.86, fy 1.53, the camera moving
-    0.02 a frame along x)."""
+    chunks, each with `train/` and `test/` splits of 2 chunks x 2 scenes x
+    80 frames of 360 x 640 JPEGs (quality 90): a smooth texture panned
+    across the frames with camera rows to match (normalised fx 0.86, fy
+    1.53, the camera moving 0.02 a frame along x). The training scenes are
+    drawn first (keys `<root>_<chunk>_<scene>`), then the test scenes (keys
+    `test_<root>_<chunk>_<scene>`)."""
     import io
     import shutil
 
@@ -2052,36 +2089,38 @@ def write_main_data(root: Path) -> list[Path]:
     h, w = MAIN_IMAGE
     shift = 4  # pixels a frame
     roots = [root / "pfchunk", root / "torch"]
-    for kind, r in zip(("pfchunk", "torch"), roots):
-        (r / "train").mkdir(parents=True)
-        for c in range(2):
-            scenes = []
-            for s in range(2):
-                small = (rng.uniform(0, 255, (h // 8, (w + shift * MAIN_FRAMES) // 8, 3))
-                         .astype(np.uint8))
-                tex = np.asarray(Image.fromarray(small).resize(
-                    (w + shift * MAIN_FRAMES, h), Image.BICUBIC), np.float32)
-                tex += rng.normal(0, 6, tex.shape)
-                tex = np.clip(tex, 0, 255).astype(np.uint8)
-                cams = np.zeros((MAIN_FRAMES, 18), np.float32)
-                cams[:, :4] = [0.86, 1.53, 0.5, 0.5]
-                frames = []
-                for f in range(MAIN_FRAMES):
-                    w2c = np.eye(4, dtype=np.float32)
-                    w2c[0, 3] = -0.02 * f
-                    cams[f, 6:] = w2c[:3].reshape(-1)
-                    buf = io.BytesIO()
-                    Image.fromarray(tex[:, f * shift:f * shift + w]).save(
-                        buf, format="JPEG", quality=MAIN_JPEG_QUALITY)
-                    frames.append(buf.getvalue())
-                scenes.append({"key": f"{kind}_{c}_{s}", "cameras": cams, "images": frames})
-            if kind == "pfchunk":
-                write_pfchunk(r / "train" / f"{c:06}.pfchunk", scenes)
-            else:
-                torch.save([{"key": sc["key"], "cameras": torch.from_numpy(sc["cameras"]),
-                             "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8)
-                                        for b in sc["images"]]} for sc in scenes],
-                           r / "train" / f"{c:06}.torch")
+    for split, prefix in (("train", ""), ("test", "test_")):
+        for kind, r in zip(("pfchunk", "torch"), roots):
+            (r / split).mkdir(parents=True)
+            for c in range(2):
+                scenes = []
+                for s in range(2):
+                    small = (rng.uniform(0, 255, (h // 8, (w + shift * MAIN_FRAMES) // 8, 3))
+                             .astype(np.uint8))
+                    tex = np.asarray(Image.fromarray(small).resize(
+                        (w + shift * MAIN_FRAMES, h), Image.BICUBIC), np.float32)
+                    tex += rng.normal(0, 6, tex.shape)
+                    tex = np.clip(tex, 0, 255).astype(np.uint8)
+                    cams = np.zeros((MAIN_FRAMES, 18), np.float32)
+                    cams[:, :4] = [0.86, 1.53, 0.5, 0.5]
+                    frames = []
+                    for f in range(MAIN_FRAMES):
+                        w2c = np.eye(4, dtype=np.float32)
+                        w2c[0, 3] = -0.02 * f
+                        cams[f, 6:] = w2c[:3].reshape(-1)
+                        buf = io.BytesIO()
+                        Image.fromarray(tex[:, f * shift:f * shift + w]).save(
+                            buf, format="JPEG", quality=MAIN_JPEG_QUALITY)
+                        frames.append(buf.getvalue())
+                    scenes.append({"key": f"{prefix}{kind}_{c}_{s}", "cameras": cams,
+                                   "images": frames})
+                if kind == "pfchunk":
+                    write_pfchunk(r / split / f"{c:06}.pfchunk", scenes)
+                else:
+                    torch.save([{"key": sc["key"], "cameras": torch.from_numpy(sc["cameras"]),
+                                 "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8)
+                                            for b in sc["images"]]} for sc in scenes],
+                               r / split / f"{c:06}.torch")
     return roots
 
 
@@ -2110,6 +2149,23 @@ class Tee:
 
     def text(self) -> str:
         return "".join(self.parts)
+
+
+def timed_batches(batch_iterator, waits: list):
+    """`batch_iterator` whose every wait for the next batch is appended to
+    `waits` (ms)."""
+    def timed(*args, **kwargs):
+        it = batch_iterator(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                batch = next(it)
+            except StopIteration:
+                return
+            waits.append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+    return timed
 
 
 @contextlib.contextmanager
@@ -2174,19 +2230,8 @@ def instrument_main(on_call=None, after_call=None, timed: bool = True):
 
         return instrumented
 
-    def timed_batches(*args, **kwargs):
-        it = batch_iterator(*args, **kwargs)
-        while True:
-            t0 = time.perf_counter()
-            try:
-                batch = next(it)
-            except StopIteration:
-                return
-            rec["data_wait_ms"].append((time.perf_counter() - t0) * 1e3)
-            yield batch
-
     train_mod.make_model_train_step = recording_make_step
-    port_main.batch_iterator = timed_batches
+    port_main.batch_iterator = timed_batches(batch_iterator, rec["data_wait_ms"])
     try:
         yield rec
     finally:
@@ -2344,6 +2389,366 @@ def main_train(train_per_step: dict) -> dict:
               log_rows=len(log_rows), restored=restored,
               data_wait_ms_mean=float(np.mean([r["data_wait_ms"] for r in steps[1:]]))))
     return per_step
+
+
+@contextlib.contextmanager
+def instrument_test():
+    """Record what `main` does in `mode=test` inside the block: per request
+    (`Evaluator.run_example`) the host ms around it (ending in a device
+    synchronisation), the launches of every kernel, and each wait for the
+    next batch; request 0's evaluator, raw batch and generator state are
+    kept for the direct check. Patches `Evaluator.run_example` and
+    `main.batch_iterator`, which `main.run_test` looks up when it runs."""
+    import torch
+
+    import pf3plat_tpu_torch.main as port_main
+    from pf3plat_tpu_torch.evaluation.evaluator import Evaluator
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+
+    rec = {"requests": [], "data_wait_ms": []}
+    run_example, batch_iterator = Evaluator.run_example, port_main.batch_iterator
+
+    def recording(self, example, generator, step_idx):
+        if step_idx == 0:
+            rec.update(evaluator=self, example=example, generator=generator.get_state())
+        before = dict(kernels.LAUNCHES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        record = run_example(self, example, generator, step_idx)
+        torch.cuda.synchronize()
+        rec["requests"].append(dict(
+            ms=(time.perf_counter() - t0) * 1e3, views=int(example["context"]["image"].shape[1]),
+            launches={k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}))
+        return record
+
+    Evaluator.run_example = recording
+    port_main.batch_iterator = timed_batches(batch_iterator, rec["data_wait_ms"])
+    try:
+        yield rec
+    finally:
+        Evaluator.run_example = run_example
+        port_main.batch_iterator = batch_iterator
+
+
+def main_test(serve_per_request: dict | None) -> dict:
+    """The serving entry point at full width: `main` on configs/re10k_test.yaml
+    (b=1, 2 context + 3 target views spliced into v=5, 256 x 256, LPIPS,
+    depth panels, 30-frame wobble and interpolation videos) over the test
+    splits of the main_train data (8 scenes), restored from main_train's
+    checkpoint directory, through an evaluation index in the released
+    schema. First the index generator's CLI on each root. Gates: the
+    restore line; 8 scores, finite PSNR / SSIM / LPIPS; benchmark.json's
+    count 8 - 5; peak memory from torch.cuda; every artifact; request 0's
+    PSNR equal to a direct `PF3plat.forward` on its batch and generator
+    (1e-5 relative); launches per request = the serve phase's (when given;
+    else request 0's) plus one B1 and one B2 per extra render (depth, and
+    two videos of ceil(30 / 6) chunks). Returns the launches per request."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.evaluation import index_generator
+    from pf3plat_tpu_torch.evaluation.evaluator import VIDEO_CHUNK
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training.metrics import compute_psnr
+
+    roots = [MAIN_DATA / "pfchunk", MAIN_DATA / "torch"]
+    shutil.rmtree(MAIN_TEST, ignore_errors=True)
+    MAIN_TEST.mkdir(parents=True)
+    generated = {}
+    for r in roots:
+        t0 = time.perf_counter()
+        out_json = MAIN_TEST / f"generated_index_{r.name}.json"
+        index_generator.main([str(r), "--out", str(out_json)])
+        gen = json.loads(out_json.read_text())
+        generated[r.name] = dict(valid=sum(v is not None for v in gen.values()), total=len(gen),
+                                 s=time.perf_counter() - t0)
+    keys = sorted(f"test_{r.name}_{c}_{s}" for r in roots for c in range(2) for s in range(2))
+    index = {}
+    for k, key in enumerate(keys):
+        i = 5 + 3 * k
+        index[key] = {"context": [i, i + 45],
+                      "target": [int(x) for x in np.round(np.linspace(i, i + 45, 5)[1:-1])]}
+    index["scene_not_in_the_data"] = None  # the released index's null entries
+    (MAIN_TEST / "index.json").write_text(json.dumps(index))
+
+    frames = 30
+    argv = [str(REPO / "configs" / "re10k_test.yaml"),
+            "dataset.roots=" + json.dumps([str(r) for r in roots]),
+            f'evaluation_index="{MAIN_TEST / "index.json"}"',
+            f'checkpointing.directory="{MAIN_CKPT}"', f'test.output_path="{MAIN_TEST / "out"}"',
+            "test.save_video=true", f"test.video_frames={frames}"]
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()  # peak_memory.json: this run's peak
+    kernels.reset_launches()
+    with instrument_test() as rec:
+        printed = run_main(argv)
+    launches = dict(kernels.LAUNCHES)
+    run_s = time.perf_counter() - t0
+    out = MAIN_TEST / "out"
+    n_req = len(keys)
+    if "loaded checkpoint at step" not in printed:
+        raise AssertionError("main_test: no 'loaded checkpoint at step' in its output")
+    scores = json.loads((out / "scores_all_avg.json").read_text())
+    bench = json.loads((out / "benchmark.json").read_text())
+    memory = json.loads((out / "peak_memory.json").read_text())
+    bad = [k for k in ("psnr", "ssim", "lpips") if not math.isfinite(scores["all"].get(k, math.nan))]
+    if scores["all"]["count"] != n_req or bad or len(rec["requests"]) != n_req:
+        raise AssertionError(f"main_test: {len(rec['requests'])} requests, scores "
+                             f"{scores['all']} (want count {n_req}, finite psnr/ssim/lpips)")
+    if bench["encoder_decoder"]["count"] != n_req - 5:
+        raise AssertionError(f"main_test: benchmark.json {bench} (want count {n_req - 5})")
+    if not all(isinstance(memory.get(k), int) and memory[k] > 0
+               for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")):
+        raise AssertionError(f"main_test: peak_memory.json {memory}")
+    files = {"images/pred": 3 * n_req, "images/gt": 3 * n_req, "compare": n_req,
+             "depth": n_req, "video": 2 * n_req}
+    found = {d: len(list((out / d).glob("*.png" if d != "video" else "*.gif"))) for d in files}
+    if found != files:
+        raise AssertionError(f"main_test: artifacts {found}, want {files}")
+
+    # request 0 again through a direct forward: its batch, the restored
+    # model, the same generator state; scored as the evaluator scores
+    model = rec["evaluator"].model
+    ctx = rec["example"]["context"]
+    images, intr, near, far = (torch.as_tensor(np.asarray(ctx[k]), dtype=torch.float32,
+                                               device="cuda")
+                               for k in ("image", "intrinsics", "near", "far"))
+    gen = torch.Generator(device="cuda")
+    gen.set_state(rec["generator"])
+    with torch.no_grad():
+        _, pred = model(images, intr, near, far, 0, depth_mode="depth", generator=gen)
+        psnr = float(compute_psnr(images[0, 1:-1], pred.color[0, 1:-1]).mean())
+    record0 = json.loads((out / "metrics.txt").read_text().splitlines()[0])
+    psnr_rel = abs(psnr - record0["psnr"]) / abs(record0["psnr"])
+    if not psnr_rel <= TOL_MAIN_TEST_PSNR:
+        raise AssertionError(f"main_test: request 0's PSNR {record0['psnr']} through main, "
+                             f"{psnr} directly: {psnr_rel} > {TOL_MAIN_TEST_PSNR}")
+
+    # launches per request: a serving request's, plus one B1 and one B2 for
+    # the depth render and for each video chunk
+    renders = 1 + 2 * math.ceil(frames / VIDEO_CHUNK)
+    base = serve_per_request or {k: n for k, n in rec["requests"][0]["launches"].items()
+                                 if k == "attention_fwd"}
+    want = dict.fromkeys(kernels.LAUNCHES, 0)
+    want.update(base)
+    for k in FWD_KERNELS["streamed"]:
+        want[k] = base.get(k, 1) + renders
+    wrong = [(i, k, r["launches"][k], want[k]) for i, r in enumerate(rec["requests"])
+             for k in want if r["launches"][k] != want[k]]
+    if wrong or sum(r["launches"]["attention_fwd"] for r in rec["requests"]) == 0:
+        raise AssertionError(f"main_test: launches per request (request, kernel, got, want) "
+                             f"{wrong[:8]}")
+    times = rec["evaluator"].benchmarker.execution_times["encoder_decoder"]
+    emit(dict(phase="main_test", config="configs/re10k_test.yaml", batch=[1, 5, 256, 256],
+              index_generator=generated, requests=n_req, run_s=run_s,
+              request_ms=[r["ms"] for r in rec["requests"]],
+              encoder_decoder_ms=[x * 1e3 for x in times],
+              benchmark_median_ms=bench["encoder_decoder"]["median_s"] * 1e3,
+              benchmark_mean_ms=bench["encoder_decoder"]["mean_s"] * 1e3,
+              peak_bytes_in_use=memory["peak_bytes_in_use"], bytes_limit=memory["bytes_limit"],
+              first_batch_wait_ms=rec["data_wait_ms"][0],
+              data_wait_ms=rec["data_wait_ms"][1:], scores_all=scores["all"],
+              request0_psnr_main=record0["psnr"], request0_psnr_direct=psnr,
+              request0_psnr_rel_diff=psnr_rel, tol=TOL_MAIN_TEST_PSNR,
+              launches_per_request=rec["requests"][0]["launches"], launches_want=want,
+              launches_serve_per_request=serve_per_request, renders_beyond_serve=renders,
+              launches_total=launches, artifacts=found))
+    del rec, model
+    return want
+
+
+def train_frozen() -> dict:
+    """`make_train_step` (the step on precomputed frozen inputs) at full
+    width: the training step of record's batch (b=3, v=3, 256 x 256,
+    configs/re10k.yaml's model, random weights from the seed), frozen inputs
+    from `model.perceive`; a warm-up step, then one timed step from the
+    initial parameters, whose loss and gradient norm must equal
+    `make_model_train_step`'s step from the same parameters, batch and
+    generator to TOL_TRAIN_FROZEN. B1-B4 launch once in the step."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training.losses import LossCfg
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, TrainState, make_model_train_step, make_optimizer, make_train_step)
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(), device="cuda")
+    rng = np.random.default_rng(SEED)
+    b, v, h, w = 3, 3, 256, 256
+    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
+    intr = torch.as_tensor(np.broadcast_to(
+        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
+        device="cuda")
+    ctx = dict(image=images, intrinsics=intr, near=torch.ones((b, v), device="cuda"),
+               far=torch.full((b, v), 100.0, device="cuda"))
+    params = list(model.encoder.parameters())
+    initial = [p.detach().clone() for p in params]
+    opt = make_optimizer(OptimizerCfg())
+
+    def fresh() -> TrainState:
+        with torch.no_grad():
+            for p, x in zip(params, initial):
+                p.copy_(x)
+        return TrainState(params, opt.init(params), 0)
+
+    def generator():
+        return torch.Generator(device="cuda").manual_seed(SEED + 1)
+
+    t0 = time.perf_counter()
+    frozen, corr = model.perceive(images, intr)
+    torch.cuda.synchronize()
+    perceive_ms = (time.perf_counter() - t0) * 1e3
+    batch = dict(context=ctx, target=dict(image=images), frozen=frozen, corr=corr)
+    step = make_train_step(model.encoder, model.cfg.decoder, LossCfg(), opt, (h, w),
+                           lpips_apply=model.lpips_apply)
+    step(fresh(), batch, generator=generator())  # warm-up
+    state = fresh()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    events = {"start": torch.cuda.Event(enable_timing=True)}
+
+    def timer(stage):
+        events[stage] = torch.cuda.Event(enable_timing=True)
+        events[stage].record()
+
+    wall0 = time.perf_counter()
+    events["start"].record()
+    _, aux = step(state, batch, generator=generator(), timer=timer)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - wall0) * 1e3
+    launches = dict(kernels.LAUNCHES)
+    stages, prev = {}, "start"
+    for stage in ("encoder", "decoder", "loss", "backward", "optimizer"):
+        stages[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
+        prev = stage
+    got = {k: float(aux[k]) for k in ("loss", "grad_norm")}
+    _, aux_m = make_model_train_step(model, LossCfg(), OptimizerCfg())(
+        fresh(), dict(context=ctx, target=dict(image=images)), generator=generator())
+    want = {k: float(aux_m[k]) for k in ("loss", "grad_norm")}
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in got)
+    emit(dict(phase="train_frozen", batch=[b, v, h, w], ms=ms, perceive_ms_outside=perceive_ms,
+              **stages, launches=launches, make_train_step=got, make_model_train_step=want,
+              max_rel_diff=rel, tol=TOL_TRAIN_FROZEN))
+    once = {k: launches[k] for k in TRAIN_KERNELS["streamed"]}
+    if any(n != 1 for n in once.values()) or not all(launches[k] for k in MODEL_TRAIN_KERNELS):
+        raise AssertionError(f"train_frozen: launches {launches} (B1-B4 once, attention both)")
+    if not all(math.isfinite(x) for x in got.values()) or not rel <= TOL_TRAIN_FROZEN:
+        raise AssertionError(f"train_frozen: make_train_step {got} against "
+                             f"make_model_train_step {want}: {rel} > {TOL_TRAIN_FROZEN}")
+    del model, state, batch, frozen, corr
+    torch.cuda.empty_cache()
+    return launches
+
+
+def bf16_operands():
+    """A torch function mode that rounds the operands of every matmul,
+    convolution and library attention to bf16 and computes in float32: the
+    JAX package's `default_matmul_precision("bfloat16")` (one bf16 pass,
+    float32 sums and outputs). Biases stay float32."""
+    import torch
+    import torch.nn.functional as F
+    from torch.overrides import TorchFunctionMode
+
+    two = {F.linear, torch.conv1d, torch.conv2d, F.conv1d, F.conv2d, F.conv_transpose2d}
+    every = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm, torch.bmm,
+             torch.einsum, F.scaled_dot_product_attention}
+    last_two = {torch.addmm, torch.baddbmm}
+
+    def rnd(x):
+        if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
+            return x.to(torch.bfloat16).to(torch.float32)
+        if isinstance(x, (list, tuple)):
+            return type(x)(rnd(y) for y in x)
+        return x
+
+    class Mode(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in two:
+                args = (rnd(args[0]), rnd(args[1]), *args[2:])
+            elif func in every:
+                args = tuple(rnd(a) for a in args)
+            elif func in last_two:
+                args = (args[0], rnd(args[1]), rnd(args[2]), *args[3:])
+            return func(*args, **kwargs)
+
+    return Mode()
+
+
+def perceive_precision() -> dict:
+    """`PF3plat.perceive` on the serving request (b=1, v=5, 256 x 256,
+    configs/re10k_test.yaml's model, random weights from the seed) three
+    ways: under bf16 autocast (the port's default on the card), with
+    `frozen_matmul_precision="highest"` (float32), and float32 modules with
+    bf16-rounded matmul and convolution operands (the JAX package's rule,
+    `bf16_operands`). Per mode: the ms of 3 calls after a warm-up (CUDA
+    events), and the depth, feature and match differences from "highest"."""
+    import contextlib as ctxlib
+
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
+    base = model.cfg
+    rng = np.random.default_rng(SEED)
+    b, v, h, w = 1, SERVE_VIEWS, 256, 256
+    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
+    intr = torch.as_tensor(np.broadcast_to(
+        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
+        device="cuda")
+    modes = {"autocast": ("bfloat16", ctxlib.nullcontext), "highest": ("highest", ctxlib.nullcontext),
+             "jax_rule": ("highest", bf16_operands)}
+    outs, ms = {}, {}
+    for name, (precision, scope) in modes.items():
+        model.cfg = dataclasses.replace(base, frozen_matmul_precision=precision)
+        with scope():
+            model.perceive(images, intr)  # warm-up
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                frozen, corr = model.perceive(images, intr)
+            end.record()
+            torch.cuda.synchronize()
+        ms[name] = start.elapsed_time(end) / 3
+        outs[name] = (frozen, corr)
+    model.cfg = base
+
+    def rel(a, c):
+        return dict(max_rel=float((a - c).abs().max() / c.abs().max()),
+                    mean_rel=float((a - c).abs().mean() / c.abs().mean()))
+
+    ref_f, ref_c = outs["highest"]
+    diffs = {}
+    for name in ("autocast", "jax_rule"):
+        f, c = outs[name]
+        both = c.valid & ref_c.valid
+        diffs[name] = dict(
+            depth=rel(f.depth, ref_f.depth), features=rel(f.features, ref_f.features),
+            matches_valid=int(c.valid.sum()), matches_valid_highest=int(ref_c.valid.sum()),
+            matches_valid_agree=float((c.valid == ref_c.valid).float().mean()),
+            kpts_equal=float((c.kpts0 == ref_c.kpts0).all(-1).float().mean()),
+            scores_max_abs=float((c.scores - ref_c.scores)[both].abs().max()) if bool(both.any())
+            else None)
+    ratio = {k: diffs["autocast"][k]["mean_rel"] / max(diffs["jax_rule"][k]["mean_rel"], 1e-30)
+             for k in ("depth", "features")}
+    emit(dict(phase="perceive_precision", batch=[b, v, h, w], perceive_ms=ms,
+              jax_rule_cost=ms["jax_rule"] / ms["autocast"] - 1.0, diffs_from_highest=diffs,
+              autocast_over_jax_rule=ratio))
+    for name, (f, _) in outs.items():
+        if not (bool(torch.isfinite(f.depth).all()) and bool(torch.isfinite(f.features).all())):
+            raise AssertionError(f"perceive_precision: non-finite outputs under {name}")
+    del model, outs
+    torch.cuda.empty_cache()
+    return dict(ms=ms, diffs=diffs, ratio=ratio)
 
 
 def trace_window(log_dir: Path, window: str) -> dict:
@@ -2541,6 +2946,8 @@ def main(argv) -> int:
         _, launches, _, _ = train("streamed")
         main_train({k: n // 2 for k, n in launches.items()})
         torch.cuda.empty_cache()
+        main_test(None)
+        torch.cuda.empty_cache()
         trace_phase()
         print(smi, flush=True)
         return 0
@@ -2595,6 +3002,7 @@ def main(argv) -> int:
     # Serving: the same request (same seeds, so the same gaussians) through
     # both decoders.
     captured, serve_launches, image = serve("streamed", timed_shapes=serve_shapes)
+    serve_per_request = {k: n // 3 for k, n in serve_launches.items()}
     torch.cuda.empty_cache()
     scene = render_scene(captured)
     screen = project(scene, shape, config)
@@ -2606,6 +3014,7 @@ def main(argv) -> int:
     depth_phase(captured, config)
     del captured
     torch.cuda.empty_cache()
+    perceive_precision()
     _, launches_p, image_p = serve("pallas")
     serve_launches.update({k: launches_p[k] for k in FWD_KERNELS["pallas"]})
     diff = (image - image_p).abs()
@@ -2677,10 +3086,14 @@ def main(argv) -> int:
                                             RasterizeConfig(), "train")
     del scene, screen, captured
     torch.cuda.empty_cache()
+    train_frozen()
 
-    # The training entry point at full width, its resume, then the traced
-    # windows (main's loop, a serving request) in a child process.
+    # The training entry point at full width, its resume, the serving entry
+    # point restored from it, then the traced windows (main's loop, a
+    # serving request) in a child process.
     main_per_step = main_train(train_per_step)
+    torch.cuda.empty_cache()
+    main_test_per_request = main_test(serve_per_request)
     torch.cuda.empty_cache()
     trace_phase()
     # the attention kernels at the pose-stack shape (forward and backward of
@@ -2696,6 +3109,7 @@ def main(argv) -> int:
         line.append(dict(name=name, route="cuda", source=src, replaces=replaces,
                          launches=launches[name], launches_serve=serve_launches.get(name, 0),
                          launches_main_per_step=main_per_step[name],
+                         launches_main_test_per_request=main_test_per_request[name],
                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"],
                          # the SFU's exponentials are operations of the card too

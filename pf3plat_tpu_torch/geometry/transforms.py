@@ -1,7 +1,6 @@
 """Rotation / rigid-transform utilities on torch tensors.
 
-Port of `pf3plat_tpu/geometry/transforms.py` (the serving path's part, the
-pose metrics' angles and `matrix_to_quaternion` for the trajectories).
+Port of `pf3plat_tpu/geometry/transforms.py`.
 """
 
 from __future__ import annotations
@@ -24,6 +23,13 @@ def translation_angle(t1: torch.Tensor, t2: torch.Tensor, eps: float = 1e-8) -> 
 
 def _normalize(x: torch.Tensor, eps: float) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.norm(x, dim=-1, keepdim=True), min=eps)
+
+
+def plucker_embedding(origins: torch.Tensor, directions: torch.Tensor) -> torch.Tensor:
+    """Pluecker ray coordinates (moment, direction) -> (..., 6):
+    cross(origin, direction) concatenated with direction."""
+    moment = torch.cross(origins, directions, dim=-1)
+    return torch.cat([moment, directions], dim=-1)
 
 
 def rotation_6d_to_matrix(d6: torch.Tensor) -> torch.Tensor:

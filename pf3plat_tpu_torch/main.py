@@ -2,16 +2,18 @@
 
 Port of `pf3plat_tpu/main.py` (the reference's `src/main.py:37-155`: typed
 config, model + data pipeline, the training loop with checkpoints, periodic
-logging and validation artifacts). Runs on the card unless the caller asks
-otherwise (`main(argv, device="cpu")`).
+logging and validation artifacts, and the evaluation protocol). Runs on the
+card unless the caller asks otherwise (`main(argv, device="cpu")`).
 
 Modes:
   mode=train   train on chunk datasets under dataset.roots
-  mode=test    not ported yet (ROADMAP.md queue A item 6): raises
+  mode=test    run the evaluation protocol over the test split
 """
 
 from __future__ import annotations
 
+import itertools
+import json
 import sys
 import time
 from pathlib import Path
@@ -293,6 +295,52 @@ def run_validation(cfg, model, batch, generator, step) -> None:
         print(f"validation at step {step} failed: {e}", flush=True)
 
 
+def run_test(cfg, device=None) -> None:
+    """The evaluation protocol over the test split: the model from
+    `cfg.seed`, converted frozen weights (`weights=`) and the latest
+    checkpoint of `checkpointing.directory` (with its `frozen/`), then one
+    `Evaluator.run_example` per streamed batch."""
+    from .device import resolve_device
+    from .evaluation.evaluator import EvalCfg, Evaluator
+    from .training.checkpoints import CheckpointManager, load_frozen_state
+    from .training.train import init_train_state
+
+    dev = resolve_device(device)
+    batches = batch_iterator(cfg, "test", 0, 1, lambda: 0)
+    first = next(batches)
+    torch.manual_seed(cfg.seed)
+    model = build_model(cfg, dev)
+    if cfg.weights is not None:
+        from .training.pretrained import load_pretrained_frozen
+
+        load_pretrained_frozen(cfg.weights, model)
+
+    ckpt = CheckpointManager(cfg.checkpointing)
+    state = ckpt.restore_latest(init_train_state(model))
+    if state is not None:
+        load_frozen_state(model, ckpt.restore_frozen())
+        print(f"loaded checkpoint at step {int(state.step)}")
+
+    evaluator = Evaluator(
+        EvalCfg(
+            output_path=Path(cfg.test.output_path),
+            eval_time_skip_steps=cfg.test.eval_time_skip_steps,
+            save_image=cfg.test.save_image,
+            compute_scores=cfg.test.compute_scores,
+            save_video=cfg.test.save_video,
+            video_frames=cfg.test.video_frames,
+            depth_mode=cfg.test.depth_mode,
+        ),
+        model, dev, lpips_apply=model.lpips_apply,
+    )
+    # Stream examples — materializing the whole split up front would hold
+    # the full test set (tens of GB on real RE10K) in host memory.
+    for idx, raw in enumerate(itertools.chain([first], batches)):
+        rec = evaluator.run_example(raw, step_generator(cfg.seed, idx, dev), idx)
+        print(f"[{idx}] {rec}", flush=True)
+    print(json.dumps(evaluator.finalize(), indent=2))
+
+
 def main(argv=None, device=None) -> None:
     from .utils.config import load_config
 
@@ -305,10 +353,7 @@ def main(argv=None, device=None) -> None:
     if cfg.mode == "train":
         run_train(cfg, device)
     elif cfg.mode == "test":
-        raise NotImplementedError(
-            "mode=test (the evaluation protocol) is not ported yet: ROADMAP.md "
-            "queue A item 6"
-        )
+        run_test(cfg, device)
     else:
         raise ValueError(f"unknown mode {cfg.mode}")
 

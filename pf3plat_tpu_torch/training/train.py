@@ -1,5 +1,6 @@
-"""Optimizer and train step; port of `pf3plat_tpu/training/train.py`
-(`OptimizerCfg`, `make_optimizer`, `TrainState`, `make_model_train_step`).
+"""Optimizer and train steps; port of `pf3plat_tpu/training/train.py`
+(`OptimizerCfg`, `make_optimizer`, `TrainState`, `init_train_state`,
+`make_train_step` on precomputed frozen inputs, `make_model_train_step`).
 
 The optimizer is written out as plain functions with optax's semantics,
 not with torch's library helpers, whose edges differ:
@@ -17,8 +18,9 @@ not with torch's library helpers, whose edges differ:
     schedule's count) alone; after more than 100 consecutive failures the
     update is applied anyway. `TrainState.step` advances either way.
 
-Trainable parameters are the encoder's only; the frozen modules never get
-gradients.
+`make_optimizer(cfg)` puts these functions behind optax's interface
+(`init(params)`, `update(grads, state)`). Trainable parameters are the
+encoder's only; the frozen modules never get gradients.
 """
 
 from __future__ import annotations
@@ -120,9 +122,97 @@ def opt_update(cfg: OptimizerCfg, schedule, grads, state: OptState
     return updates, OptState(count, mu, nu, notfinite)
 
 
+@dataclasses.dataclass(frozen=True)
+class Optimizer:
+    """`make_optimizer`'s result: `init` / `update` over `init_opt_state` /
+    `opt_update` with the schedule of `cfg`."""
+    cfg: OptimizerCfg
+    schedule: Callable[[int], float]
+
+    def init(self, params) -> OptState:
+        return init_opt_state(params)
+
+    def update(self, grads, state: OptState) -> tuple[list[torch.Tensor], OptState]:
+        return opt_update(self.cfg, self.schedule, grads, state)
+
+
+def make_optimizer(cfg: OptimizerCfg) -> Optimizer:
+    return Optimizer(cfg, make_schedule(cfg))
+
+
 def init_train_state(model) -> TrainState:
     params = list(model.encoder.parameters())
     return TrainState(params, init_opt_state(params), 0)
+
+
+def _psnr(color: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    return -10.0 * torch.log10(torch.clamp(torch.mean((color.detach() - target) ** 2),
+                                           min=1e-12))
+
+
+def _finish_step(state: TrainState, opt: Optimizer, loss, parts, color, target, timer,
+                 grad_sync) -> tuple[TrainState, dict]:
+    """The common end of both train steps: aux, backward, the optimizer
+    update in place, the next state."""
+    aux = {k: v.detach() for k, v in parts.items()}
+    aux["psnr"] = _psnr(color, target)
+    if timer:
+        timer("loss")
+    loss.backward()
+    if timer:
+        timer("backward")
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+    if grad_sync is not None:
+        grad_sync(grads)
+    updates, opt_state = opt.update(grads, state.opt_state)
+    with torch.no_grad():
+        for p, u in zip(state.params, updates):
+            p.add_(u)
+    aux["loss"] = loss.detach()
+    aux["grad_norm"] = global_norm(grads)
+    if timer:
+        timer("optimizer")
+    return TrainState(state.params, opt_state, state.step + 1), aux
+
+
+def make_train_step(encoder, decoder_cfg, loss_cfg: LossCfg, opt: Optimizer,
+                    image_shape: tuple[int, int], lpips_apply=None):
+    """The train step on precomputed frozen inputs (`train.py:84-156`):
+    encoder, render at the predicted poses, losses, backward, update.
+
+    `train_step(state, batch, ransac_noise=None, generator=None, timer=None,
+    grad_sync=None) -> (state, aux)`, `state.params` the encoder's
+    parameters (`TrainState(list(encoder.parameters()), opt.init(...), 0)`).
+    The batch holds `context` (image (b, v, h, w, 3), intrinsics, near,
+    far), `target` (image: with the union trick the context stack),
+    `frozen` (`FrozenInputs` of the context views) and `corr`
+    (`Correspondences`); tensors are moved to the encoder's device. `aux`
+    holds the loss parts, `psnr`, `loss` and `grad_norm`; `timer` is called
+    with "encoder", "decoder", "loss", "backward", "optimizer"."""
+    from ..models.decoder import decode
+
+    def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None,
+                   grad_sync=None):
+        dev = state.params[0].device
+        ctx = batch["context"]
+        images, intrinsics, near, far = (ctx[k].to(dev, torch.float32)
+                                         for k in ("image", "intrinsics", "near", "far"))
+        target = batch["target"]["image"].to(dev, torch.float32)
+        for p in state.params:
+            p.grad = None
+        enc = encoder(images, intrinsics, near, far, batch["frozen"], batch["corr"], state.step,
+                      ransac_noise=ransac_noise, generator=generator)
+        if timer:
+            timer("encoder")
+        c2w = torch.linalg.inv(enc.refined_poses)  # (b, v, 4, 4) predicted c2w
+        out = decode(decoder_cfg, enc.gaussians, c2w, intrinsics, near, far, image_shape)
+        if timer:
+            timer("decoder")
+        loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
+                                 lpips_fn=lpips_apply)
+        return _finish_step(state, opt, loss, parts, out.color, target, timer, grad_sync)
+
+    return train_step
 
 
 def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=None):
@@ -139,7 +229,7 @@ def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=
     parts, `psnr`, `loss` and `grad_norm` (the global norm before
     clipping). `timer`, if given, is called with "perceive", "encoder",
     "decoder", "loss", "backward", "optimizer" as each stage ends."""
-    schedule = make_schedule(opt_cfg)
+    opt = make_optimizer(opt_cfg)
 
     def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None,
                    grad_sync=None):
@@ -154,25 +244,6 @@ def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=
         intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
         loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
                                  lpips_fn=lpips_fn)
-        aux = {k: v.detach() for k, v in parts.items()}
-        aux["psnr"] = -10.0 * torch.log10(
-            torch.clamp(torch.mean((out.color.detach() - target) ** 2), min=1e-12))
-        if timer:
-            timer("loss")
-        loss.backward()
-        if timer:
-            timer("backward")
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
-        if grad_sync is not None:
-            grad_sync(grads)
-        updates, opt_state = opt_update(opt_cfg, schedule, grads, state.opt_state)
-        with torch.no_grad():
-            for p, u in zip(state.params, updates):
-                p.add_(u)
-        aux["loss"] = loss.detach()
-        aux["grad_norm"] = global_norm(grads)
-        if timer:
-            timer("optimizer")
-        return TrainState(state.params, opt_state, state.step + 1), aux
+        return _finish_step(state, opt, loss, parts, out.color, target, timer, grad_sync)
 
     return train_step

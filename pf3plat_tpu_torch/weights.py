@@ -106,6 +106,8 @@ def jax_leaf(flat: dict[str, np.ndarray], name: str, rules, what: str
         raise KeyError(f"{what}: no JAX parameter for {name} (looked for {base}.{cands})")
     arr = flat[key]
     if cand == "kernel":
+        if arr.ndim not in (2, 4):
+            raise ValueError(f"{what}: {key} has shape {arr.shape}, not a dense or conv kernel")
         arr = arr.T if arr.ndim == 2 else arr.transpose(3, 2, 0, 1)
     return key, arr
 

@@ -455,6 +455,42 @@ def test_public_names_of_the_table_slice(module, names):
         assert name in kernels.LAUNCHES
 
 
+@pytest.mark.parametrize(
+    "module,names",
+    [
+        ("pf3plat_tpu_torch.geometry.projection",
+         ["project", "project_camera_space", "transform_cam2world", "transform_world2cam",
+          "intersect_rays"]),
+        ("pf3plat_tpu_torch.geometry.transforms", ["plucker_embedding"]),
+        ("pf3plat_tpu_torch.geometry.epipolar", ["project_ray_samples", "view_overlap"]),
+        ("pf3plat_tpu_torch.utils.benchmarker", ["Benchmarker", "sync"]),
+        ("pf3plat_tpu_torch.evaluation.metric_computer", ["compute_metrics", "main"]),
+        ("pf3plat_tpu_torch.evaluation.index_generator",
+         ["IndexGeneratorCfg", "choose_pair", "generate_index", "main"]),
+        ("pf3plat_tpu_torch.evaluation.evaluator", ["EvalCfg", "Evaluator", "overlap_bucket"]),
+        ("pf3plat_tpu_torch.main", ["run_test", "run_train", "run_validation", "main"]),
+        ("pf3plat_tpu_torch.training.train", ["make_optimizer", "make_train_step",
+                                              "init_train_state", "make_model_train_step"]),
+        ("pf3plat_tpu_torch.utils.ply_export", ["export_ply"]),
+        ("pf3plat_tpu_torch.models.backbones.weight_convert",
+         ["conv_w", "linear_w", "convert_superpoint", "convert_lightglue", "convert_dinov2",
+          "convert_unidepth", "convert_lpips_vgg", "main"]),
+    ],
+    ids=lambda x: x if isinstance(x, str) else "",
+)
+def test_public_names_of_the_evaluation_slice(module, names):
+    """The JAX package's names of the evaluation slice and its remainder
+    exist in the port under the same module paths, and the module imports
+    no JAX (its file is also a case of `test_no_forbidden_imports`)."""
+    import importlib
+
+    mod = importlib.import_module(module)
+    missing = [name for name in names if not hasattr(mod, name)]
+    assert not missing, f"{module} lacks {missing}"
+    path = Path(mod.__file__)
+    assert path in _port_files()
+
+
 def test_model_entry_point_needs_device_off_card():
     """PF3plat defaults to cuda; without a card it raises unless the caller
     passes device="cpu"."""

@@ -86,3 +86,46 @@ def make_scene_np(rng, n=64, b=2, d_sh=25, spread=1.0):
         far=f32(np.full((b,), 100.0)), background=f32(np.zeros((b, 3))),
         means=f32(means), covariances=f32(cov), sh=f32(sh), opacities=f32(opac),
     )
+
+
+def jax_tree_from_port(module, shapes, rules, what):
+    """The JAX parameter tree (nested dicts of numpy arrays) that
+    `weights.load_flat(module, flatten(tree), rules, what)` loads back into
+    `module`'s present tensors: the inverse of the port's loader, for a tree
+    of the layout `shapes` (e.g. a `jax.eval_shape` of the JAX module's
+    init, without its "params" level). Lets a test hand the port's random
+    init to the JAX package without compiling the JAX init."""
+    from pf3plat_tpu_torch.weights import jax_leaf
+
+    paths = {}
+
+    def walk(tree, prefix, names):
+        for k, v in tree.items():
+            name = str(k).replace("CheckpointUNetModel", "UNetModel")
+            name = f"{names}.{name}" if names else name
+            if isinstance(v, dict):
+                walk(v, prefix + (k,), name)
+            else:
+                paths[name] = (prefix + (k,), tuple(v.shape))
+
+    walk(shapes, (), "")
+    zeros = {name: np.zeros(shape, np.float32) for name, (_, shape) in paths.items()}
+    out: dict = {}
+    filled = set()
+    # where several port tensors load from one JAX leaf (LightGlue's
+    # per-layer assignment heads), the last one gives it
+    for name, tensor in module.state_dict().items():
+        key, _ = jax_leaf(zeros, name, rules, what)
+        arr = tensor.detach().cpu().numpy()
+        if key.endswith(".kernel"):
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        path, shape = paths[key]
+        assert arr.shape == shape, (what, name, arr.shape, shape)
+        node = out
+        for part in path[:-1]:
+            node = node.setdefault(part, {})
+        node[path[-1]] = np.array(arr)
+        filled.add(key)
+    missing = sorted(set(paths) - filled)
+    assert not missing, f"{what}: JAX leaves without a port tensor: {missing[:4]}"
+    return out

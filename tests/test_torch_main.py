@@ -361,9 +361,13 @@ class TestMain:
         row = json.loads((tmp_path / "logs" / "scalars.jsonl").read_text())
         assert row["step"] == 1 and np.isfinite(row["loss"])
 
-    def test_mode_test_not_ported(self):
-        with pytest.raises(NotImplementedError, match="A item 6"):
-            tmain.main([str(CONFIG_DIR / "re10k_test.yaml"), "mode=test"], device="cpu")
+    def test_mode_test_not_ported(self, monkeypatch):
+        """`mode=test` is ported now: `main` hands the config and the device
+        to `run_test` (run end to end in tests/test_torch_eval.py)."""
+        calls = []
+        monkeypatch.setattr(tmain, "run_test", lambda cfg, device: calls.append((cfg, device)))
+        tmain.main([str(CONFIG_DIR / "re10k_test.yaml"), "mode=test"], device="cpu")
+        assert [(cfg.mode, device) for cfg, device in calls] == [("test", "cpu")]
 
     def test_step_generator(self):
         draw = lambda s, k: torch.randn(4, generator=tmain.step_generator(s, k, "cpu"))  # noqa
