@@ -14,6 +14,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --main     # build, one training step of record,
                                      # then phases main_train, main_test and
                                      # trace only
+    python3 chip_smoke.py --procs    # build, then phase procs_mesh only
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -140,6 +141,17 @@ Phases, each printing one JSON line; any failure exits non-zero:
                = the serve phase's plus one B1 and one B2 for each extra
                render (depth, 2 x 5 video chunks). Per request: ms, launches;
                the benchmark median, peak bytes, the first batch's wait;
+     procs_mesh - two ranks on the one card (`--procs-child`, gloo: NCCL
+               refuses two ranks on one card): mesh_render's three cases on a
+               (1, 2) world mesh, each rank running only its own shard
+               (launches read around each render), image and gradients
+               bit-equal to the one-process (1, 2) mesh render; then `main` on
+               configs/re10k.yaml at full width, b=2 (one example a rank: a
+               (2, 1) world mesh), 2 steps: both ranks' parameters bit-equal
+               after each step, step 1's loss and gradient norm within 1e-4 of
+               this process stepping on the ranks' two rows through the same
+               mesh, one checkpoint and one log written (rank 0). Per rank:
+               render ms, step ms, peak bytes, launches;
      trace   - in a child process (`--trace-child`): torch.profiler windows
                over two warm steps of main's loop and one serving request;
                per window device-busy ms against wall ms (the idle share)
@@ -1566,6 +1578,43 @@ def render_fwd_bwd(scene, config, impl: str, tag: str | None = None):
               grad_err_vs_cpu=errs, tol_rel=TOL_B3))
 
 
+MESH_DIFF = ("means", "covariances", "sh", "opacities", "background")
+
+
+def mesh_render_cases():
+    """mesh_render's three pipelines: (name, impl, config, the kernels it
+    launches once per shard a process runs, kernels it must not launch)."""
+    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig
+
+    return (("streamed_blocks", "streamed", RasterizeConfig(),
+             ("composite_fwd", "composite_bwd_blocks"), ("composite_bwd",)),
+            ("streamed_shard_local", "streamed", PRODUCTION_CONFIG,
+             ("compact_pairs", "composite_fwd", "composite_bwd", "dup_reduce"), ()),
+            ("pallas", "pallas", PRODUCTION_CONFIG, ("table_fwd", "table_bwd"), ()))
+
+
+def render_on_mesh(scene, impl, config, mesh):
+    """The bench scene through `render(..., mesh=mesh)`, forward and
+    backward of the mean squared error to a fixed target (numpy seed 1),
+    with the launch counters zeroed just before and read just after ->
+    (image, gradients of MESH_DIFF, launches)."""
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import kernels, render
+
+    tgt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3)).astype(
+        np.float32), device="cuda")
+    leaves = {k: scene[k].clone().requires_grad_(k in MESH_DIFF) for k in scene}
+    kernels.reset_launches()
+    img = render(**leaves, far=leaves["near"] * 100, image_shape=(256, 256), impl=impl,
+                 config=config, device="cuda", mesh=mesh)
+    ((img - tgt) ** 2).mean().backward()
+    torch.cuda.synchronize()
+    return img.detach(), {k: leaves[k].grad for k in MESH_DIFF}, dict(kernels.LAUNCHES)
+
+
 def mesh_render(scene, mesh):
     """The bench scene through `render(..., mesh=mesh)`, forward and
     backward, three ways, each against the same render without a mesh:
@@ -1575,37 +1624,17 @@ def mesh_render(scene, mesh):
     config (shard-local pipeline) at TOL_SHARD_LOCAL_* where no shard's
     budget overflowed, else finiteness only, with written / total per shard
     reported."""
-    import numpy as np
-    import torch
-
-    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
-    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, compact, kernels, render
+    from pf3plat_tpu_torch.ops.rasterizer import compact
     from pf3plat_tpu_torch.ops.rasterizer.shard_local import shard_pairs_budget
 
-    diff = ("means", "covariances", "sh", "opacities", "background")
+    diff = MESH_DIFF
     shape = (256, 256)
-    tgt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3)).astype(
-        np.float32), device="cuda")
-
-    def run(impl, config, mesh_arg):
-        leaves = {k: scene[k].clone().requires_grad_(k in diff) for k in scene}
-        kernels.reset_launches()
-        img = render(**leaves, far=leaves["near"] * 100, image_shape=shape, impl=impl,
-                     config=config, device="cuda", mesh=mesh_arg)
-        ((img - tgt) ** 2).mean().backward()
-        torch.cuda.synchronize()
-        return img.detach(), {k: leaves[k].grad for k in diff}, dict(kernels.LAUNCHES)
-
-    cases = (("streamed_blocks", "streamed", RasterizeConfig(),
-              dict(composite_fwd=mesh.size, composite_bwd_blocks=mesh.size, composite_bwd=0)),
-             ("streamed_shard_local", "streamed", PRODUCTION_CONFIG,
-              dict(compact_pairs=mesh.size, composite_fwd=mesh.size, composite_bwd=mesh.size,
-                   dup_reduce=mesh.size)),
-             ("pallas", "pallas", PRODUCTION_CONFIG,
-              dict(table_fwd=mesh.size, table_bwd=mesh.size)))
+    cases = [(name, impl, config, {**{k: mesh.size for k in per_shard},
+                                   **{k: 0 for k in never}})
+             for name, impl, config, per_shard, never in mesh_render_cases()]
     for name, impl, config, want in cases:
-        img, grads, launches = run(impl, config, mesh)
-        ref_img, ref_grads, _ = run(impl, config, None)
+        img, grads, launches = render_on_mesh(scene, impl, config, mesh)
+        ref_img, ref_grads, _ = render_on_mesh(scene, impl, config, None)
         wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
         if wrong:
             raise AssertionError(f"mesh_render {name}: launches {wrong}, want {want}")
@@ -2885,6 +2914,271 @@ def trace_phase() -> None:
                               negative_leads=probe["negative_leads"])))
 
 
+# Phase procs_mesh: two processes (ranks) on the one card, gloo between them
+# (NCCL refuses two ranks on one card); their outputs under build/.
+PROCS_DIR = REPO / "build" / "procs_mesh"
+# The two-process main step against one process stepping on the same rows:
+# relative, on the loss and gradient norm; the step's own spread on the
+# card (the encoder's backward is not bit-reproducible, PERF.md section 6).
+TOL_PROCS_STEP = 1e-4
+# timed render fwd+bwd runs per mesh, after one warm-up run
+PROCS_RENDER_RUNS = 5
+
+
+def time_mesh_render(scene, impl, config, mesh) -> float:
+    """Host ms of one `render_on_mesh` (ending in a synchronisation; the
+    gloo exchanges block the host), the median of PROCS_RENDER_RUNS after a
+    warm-up."""
+    import statistics
+
+    render_on_mesh(scene, impl, config, mesh)
+    runs = []
+    for _ in range(PROCS_RENDER_RUNS):
+        t0 = time.perf_counter()
+        render_on_mesh(scene, impl, config, mesh)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(runs)
+
+
+def params_sha256(params) -> str:
+    import hashlib
+
+    import torch
+
+    flat = torch.cat([p.detach().reshape(-1).view(torch.uint8) for p in params])
+    return hashlib.sha256(flat.cpu().numpy().tobytes()).hexdigest()
+
+
+def procs_child(rank: int, port: str, out: Path) -> int:
+    """One rank of phase procs_mesh (`--procs-child <rank> <port> <dir>`):
+    `initialize_multihost` on gloo, then (1) mesh_render's three cases on a
+    (1, 2) world mesh: image and gradients saved, launches read around each
+    render, ms and peak bytes; (2) `main` on configs/re10k.yaml at full
+    width, b=2 (one example a rank: a (2, 1) world mesh), 2 steps: per step
+    ms, peak bytes, launches, the rank-local loss, the gradient norm and a
+    hash of the encoder's parameters (before step 1 and after each step),
+    and the rank's first batch. Writes rank<r>.json into `out`."""
+    import torch
+
+    from pf3plat_tpu_torch.parallel import MeshCfg, initialize_multihost, make_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo")
+    result = {"rank": rank, "renders": {}}
+    mesh = make_mesh(MeshCfg(data_axis=1, tile_axis=2), device="cuda")
+    scene = bench_scene("cuda")
+    for name, impl, config, _, _ in mesh_render_cases():
+        torch.cuda.reset_peak_memory_stats()
+        img, grads, launches = render_on_mesh(scene, impl, config, mesh)
+        torch.save({"image": img.cpu(), **{k: g.cpu() for k, g in grads.items()}},
+                   out / f"{name}_{rank}.pt")
+        ms = time_mesh_render(scene, impl, config, mesh)
+        result["renders"][name] = dict(
+            launches=launches, ms=ms, max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+            local_shards=list(mesh.local_shards))
+    del scene, img, grads
+    torch.cuda.empty_cache()
+
+    hashes = []
+    model_box = {}
+
+    def before(index, model, state, batch, kw):
+        if index == 0:
+            model_box["params"] = state.params
+            hashes.append(params_sha256(state.params))
+            torch.save({part: {k: v.cpu() for k, v in batch[part].items()}
+                        for part in ("context", "target")}, out / f"batch_{rank}.pt")
+
+    def after(index):
+        hashes.append(params_sha256(model_box["params"]))
+
+    argv = main_argv([MAIN_DATA / "pfchunk", MAIN_DATA / "torch"], 2, out / "ckpt", out / "run",
+                     *PROCS_MAIN_EXTRA)
+    with instrument_main(before, after) as rec:
+        text = run_main(argv)
+    result.update(main_steps=rec["steps"], param_sha256=hashes,
+                  logged="step 1: loss=" in text)
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+# main's overrides in phase procs_mesh: one example a rank; targets strictly
+# between the context views (every example v=3, so the ranks' rows stack
+# into the one-process batch); no validation renders. The pair budget is
+# the config's (0.48), and the shard-local budget is sized by the whole
+# mesh's batch, as in production.
+PROCS_MAIN_EXTRA = ("data_loader.batch_size=2", "view_sampler.min_distance_to_context_views=1",
+                    "train.sanity_validation=false", "train.val_check_interval=100")
+
+
+def procs_mesh() -> dict:
+    """Two ranks on the one card (`--procs-child`, gloo), against this
+    process: mesh_render's three cases on a (1, 2) world mesh bit-equal to
+    the one-process (1, 2) mesh render, each rank launching only its own
+    shard's kernels (once a case, not twice); `main` on a (2, 1) world mesh
+    with both ranks' parameters bit-equal after each step, step 1's loss and
+    gradient norm within TOL_PROCS_STEP of this process stepping on each
+    rank's row as the rank does and averaging the gradients (loss: the mean
+    of the ranks', as main logs it), its checkpoint and log written once.
+    Prints per rank ms and peak bytes, and this process's ms for the two
+    rows; returns per kernel the launches a rank made (the three renders,
+    and a main step)."""
+    import gc
+    import shutil
+    import socket
+
+    import torch
+
+    from pf3plat_tpu_torch import main as port_main
+    from pf3plat_tpu_torch.parallel import Mesh, MeshCfg, make_mesh
+    from pf3plat_tpu_torch.training import train as train_mod
+    from pf3plat_tpu_torch.training.train import init_train_state
+    from pf3plat_tpu_torch.utils.config import load_config
+
+    if not (MAIN_DATA / "torch" / "train").is_dir():
+        write_main_data(MAIN_DATA)
+    shutil.rmtree(PROCS_DIR, ignore_errors=True)
+    PROCS_DIR.mkdir(parents=True)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    t0 = time.perf_counter()
+    logs = [(PROCS_DIR / f"rank{r}.out").open("w") for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--procs-child",
+                               str(r), port, str(PROCS_DIR)], stdout=log, stderr=subprocess.STDOUT)
+             for r, log in enumerate(logs)]
+    try:
+        codes = [p.wait(timeout=900) for p in procs]
+    finally:
+        for p in procs:  # a rank left waiting for a failed one is stopped
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    children_s = time.perf_counter() - t0
+    if any(codes):
+        tails = {r: (PROCS_DIR / f"rank{r}.out").read_text()[-3000:] for r in range(2)}
+        raise AssertionError(f"procs_mesh: ranks exited with {codes}:\n{tails}")
+    ranks = [json.loads((PROCS_DIR / f"rank{r}.json").read_text()) for r in range(2)]
+
+    # (1) the renders against the one-process (1, 2) mesh, bit for bit
+    scene = bench_scene("cuda")
+    mesh = make_mesh(MeshCfg(data_axis=1, tile_axis=2), device="cuda")
+    rows = []
+    for name, impl, config, per_shard, never in mesh_render_cases():
+        want = {**{k: 1 for k in per_shard}, **{k: 0 for k in never}}
+        img, grads, _ = render_on_mesh(scene, impl, config, mesh)
+        ref = {"image": img.cpu(), **{k: g.cpu() for k, g in grads.items()}}
+        img2, _, _ = render_on_mesh(scene, impl, config, mesh)
+        ms = time_mesh_render(scene, impl, config, mesh)
+        unequal, wrong = [], []
+        for r, got in enumerate(ranks):
+            saved = torch.load(PROCS_DIR / f"{name}_{r}.pt", weights_only=True)
+            unequal += [(r, k) for k in ref if not torch.equal(saved[k], ref[k])]
+            launches = got["renders"][name]["launches"]
+            wrong += [(r, k, launches[k], n) for k, n in want.items() if launches[k] != n]
+        row = dict(phase="procs_mesh", case=name, world_mesh={"data": 1, "tile": 2},
+                   ranks=2, backend="gloo", launches_per_rank=want, wrong_launches=wrong,
+                   bit_equal_to_one_process_mesh=not unequal, unequal=unequal,
+                   one_process_repeat_bit_equal=bool(torch.equal(img, img2)),
+                   ms_per_rank=[got["renders"][name]["ms"] for got in ranks],
+                   one_process_mesh_ms=ms,
+                   max_memory_allocated_bytes_per_rank=[
+                       got["renders"][name]["max_memory_allocated_bytes"] for got in ranks])
+        emit(row)
+        rows.append(row)
+        if unequal or wrong:
+            raise AssertionError(f"procs_mesh {name}: {unequal} differ from the one-process "
+                                 f"mesh render; launches (rank, kernel, got, want) {wrong}")
+    del scene, img, img2, grads, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (2) main: the ranks agree, and step 1 equals one process on their rows
+    steps = [got["main_steps"] for got in ranks]
+    hashes = [got["param_sha256"] for got in ranks]
+    if len(steps[0]) != 2 or len(steps[1]) != 2 or hashes[0] != hashes[1] or len(hashes[0]) != 3:
+        raise AssertionError(f"procs_mesh main: steps {[len(x) for x in steps]}, parameters "
+                             f"per step {hashes}")
+    argv = main_argv([MAIN_DATA / "pfchunk", MAIN_DATA / "torch"], 2, PROCS_DIR / "ckpt",
+                     PROCS_DIR / "run", *PROCS_MAIN_EXTRA)
+    cfg = load_config(argv[0], argv[1:])
+    batches = [torch.load(PROCS_DIR / f"batch_{r}.pt", weights_only=True) for r in range(2)]
+    batch = {part: {k: torch.cat([b[part][k] for b in batches]).cuda() for k in batches[0][part]}
+             for part in ("context", "target")}
+    torch.manual_seed(cfg.seed)
+    model = port_main.build_model(cfg, "cuda")
+    init = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+    same_init = params_sha256(list(model.encoder.parameters())) == hashes[0][0]
+    # Step 1 in this process on the two rows: each row alone, as its rank
+    # takes it (b=1 through the rank's view of the (2, 1) world mesh, its
+    # row of the global RANSAC draw), the gradients averaged: the
+    # data-parallel step's own arithmetic without the exchange. A batch of 2
+    # rounds differently under bf16 autocast (PERF.md section 7). The rows'
+    # steps, after one untimed warm-up, give the one-process time.
+    dev = torch.device("cuda", torch.cuda.current_device())
+    grads, losses, row_ms = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for r in (0, 0, 1):
+        model.encoder.load_state_dict(init)
+        view = Mesh({"data": 2, "tile": 1}, (dev,), owners=(0, 1), rank=r, tile_ranks=(r,),
+                    data_ranks=(0, 1))
+        gen = port_main.step_generator(cfg.seed, 0, "cuda")
+        noise = model.ransac_noise(2, batch["context"]["image"].shape[1], gen)[r:r + 1]
+        row = {part: {k: v[r:r + 1] for k, v in batch[part].items()} for part in batch}
+        step_fn = train_mod.make_model_train_step(model, cfg.loss, cfg.optimizer, mesh=view)
+        kept = []
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, aux = step_fn(init_train_state(model), row, ransac_noise=noise,
+                         grad_sync=lambda g: kept.append([x.clone() for x in g]))
+        loss = float(aux["loss"])
+        row_ms.append((time.perf_counter() - t1) * 1e3)
+        grads.append(kept[0])
+        losses.append(loss)
+    grads, losses, row_ms = grads[1:], losses[1:], row_ms[1:]  # the warm-up's dropped
+    one_peak = torch.cuda.max_memory_allocated()
+    mean_grads = [(a + b) / 2 for a, b in zip(*grads)]
+    one = dict(loss=sum(losses) / 2, grad_norm=float(train_mod.global_norm(mean_grads)))
+    two = dict(loss=(steps[0][0]["loss"] + steps[1][0]["loss"]) / 2,
+               grad_norm=steps[0][0]["grad_norm"])
+    rel = {k: abs(two[k] - one[k]) / abs(one[k]) for k in two}
+    del grads, mean_grads, model, aux, step_fn, batch, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    ckpts = sorted(p.name for p in (PROCS_DIR / "ckpt" / "state").iterdir())
+    log_rows = [json.loads(r) for r in (PROCS_DIR / "run" / "scalars.jsonl").read_text()
+                .splitlines()]
+    logged_loss_rel = abs(log_rows[0]["loss"] - two["loss"]) / abs(two["loss"])
+    emit(dict(phase="procs_mesh", case="main", config="configs/re10k.yaml",
+              world_mesh={"data": 2, "tile": 1}, ranks=2, backend="gloo", batch_per_rank=1,
+              steps_per_rank=[[{k: v for k, v in r.items() if k != "launches"} for r in st]
+                              for st in steps],
+              launches_per_step_per_rank=[[r["launches"] for r in st] for st in steps],
+              params_bit_equal_after_each_step=hashes[0] == hashes[1],
+              one_process_same_init=same_init, step1_two_processes=two,
+              step1_one_process_rows=one, step1_rel_diff=rel, tol=TOL_PROCS_STEP,
+              one_process_row_step_ms=row_ms, one_process_rows_ms=sum(row_ms),
+              one_process_max_memory_allocated_bytes=one_peak,
+              checkpoints=ckpts, log_rows=len(log_rows), logged_loss_rel_diff=logged_loss_rel,
+              log_printed_by=[got["logged"] for got in ranks], children_s=children_s))
+    if not same_init or not all(v <= TOL_PROCS_STEP for v in rel.values()):
+        raise AssertionError(f"procs_mesh main: step 1 over two processes {two} against one "
+                             f"process {one}: {rel} > {TOL_PROCS_STEP} (same init: "
+                             f"{same_init})")
+    if ckpts != ["2"] or len(log_rows) != 2 or logged_loss_rel > 1e-6 or \
+            [got["logged"] for got in ranks] != [True, False]:
+        raise AssertionError(f"procs_mesh main: checkpoints {ckpts}, {len(log_rows)} log rows, "
+                             f"logged loss off by {logged_loss_rel}, printed by "
+                             f"{[got['logged'] for got in ranks]}")
+    per_rank = {k: sum(got["renders"][name]["launches"][k] for name in got["renders"])
+                for got in ranks[:1] for k in KERNEL_META}
+    return dict(render=per_rank, main_step=steps[0][0]["launches"])
+
+
 KERNEL_META = {
     "compact_pairs": ("pf3plat_tpu_torch/csrc/compact_pairs.cu",
                       "pf3plat_tpu/ops/rasterizer/compact.py:87"),
@@ -2919,6 +3213,8 @@ def main(argv) -> int:
     sys.path.insert(0, str(REPO))
     if argv[:1] == ["--trace-child"]:
         return trace_child(Path(argv[1]))
+    if argv[:1] == ["--procs-child"]:
+        return procs_child(int(argv[1]), argv[2], Path(argv[3]))
     LOG.unlink(missing_ok=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2949,6 +3245,12 @@ def main(argv) -> int:
         main_test(None)
         torch.cuda.empty_cache()
         trace_phase()
+        print(smi, flush=True)
+        return 0
+
+    if "--procs" in argv:
+        # the multi-process phase alone
+        procs_mesh()
         print(smi, flush=True)
         return 0
 
@@ -3095,6 +3397,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     main_test_per_request = main_test(serve_per_request)
     torch.cuda.empty_cache()
+    procs_per_rank = procs_mesh()
+    torch.cuda.empty_cache()
     trace_phase()
     # the attention kernels at the pose-stack shape (forward and backward of
     # a training step); the ViT shape's rows are the attn_*_vit lines
@@ -3110,6 +3414,8 @@ def main(argv) -> int:
                          launches=launches[name], launches_serve=serve_launches.get(name, 0),
                          launches_main_per_step=main_per_step[name],
                          launches_main_test_per_request=main_test_per_request[name],
+                         launches_procs_render_per_rank=procs_per_rank["render"][name],
+                         launches_procs_main_step_per_rank=procs_per_rank["main_step"][name],
                          max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
                          bound_ms=r["bound_ms"],
                          # the SFU's exponentials are operations of the card too

@@ -59,8 +59,10 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
-def batch_iterator(cfg, stage, host_id, num_hosts, get_step):
-    """Yield fixed-shape numpy batches, grouping examples by view count.
+def batch_iterator(cfg, stage, host_id, num_hosts, get_step, batch_size=None):
+    """Yield fixed-shape numpy batches, grouping examples by view count;
+    `batch_size` examples a training batch (default
+    `data_loader.batch_size`), one at test.
 
     JPEG decode runs on a background thread pool (`data/prefetch.py`) —
     the reference's multi-worker DataLoader equivalent
@@ -91,7 +93,7 @@ def batch_iterator(cfg, stage, host_id, num_hosts, get_step):
         num_workers=cfg.data_loader.num_workers,
         prefetch=cfg.data_loader.prefetch,
     )
-    target_bs = cfg.data_loader.batch_size if stage == "train" else 1
+    target_bs = (batch_size or cfg.data_loader.batch_size) if stage == "train" else 1
     pending: dict[int, list] = {}
     try:
         while True:
@@ -108,62 +110,74 @@ def batch_iterator(cfg, stage, host_id, num_hosts, get_step):
         pipeline.close()
 
 
-def _world() -> tuple[int, int]:
-    """(rank, world size) of torch.distributed when it is initialised."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
-
-
 def run_train(cfg, device=None) -> None:
     from .device import resolve_device
-    from .parallel import MeshCfg, make_mesh, shard_batch, shard_train_step
+    from .parallel import (
+        MeshCfg,
+        broadcast_from_rank0,
+        initialize_multihost,
+        make_mesh,
+        shard_batch,
+        shard_train_step,
+    )
+    from .parallel.mesh import _world, all_reduce_mean, local_devices, world_device_count
     from .training.checkpoints import CheckpointManager, frozen_state, load_frozen_state
     from .training.train import init_train_state, make_model_train_step
     from .utils.logging import LocalLogger
 
+    initialize_multihost()  # from a torchrun-style environment, where there is one
     dev = resolve_device(device)
+    rank, world = _world()
     tile = max(1, cfg.train.tile_axis)
-    n_dev = torch.cuda.device_count() if dev.type == "cuda" else 1
+    # The world's devices, as the JAX main's len(jax.devices()): each
+    # rank's own (one CPU a process off the card), summed over the ranks.
+    local = local_devices(dev)
+    n_dev = world_device_count(local)
     n_data = max(1, min(n_dev // tile, cfg.data_loader.batch_size))
-    mesh = None
-    if n_data * tile > 1:
-        # one shard per card where there are enough, else every shard on `dev`
-        devices = ([torch.device("cuda", i) for i in range(n_data * tile)]
-                   if n_dev >= n_data * tile else None)
-        mesh = make_mesh(MeshCfg(data_axis=n_data, tile_axis=tile), devices=devices,
-                         device=dev)
-    host_id, num_hosts = _world()
-    print(f"mesh: data={n_data} tile={tile} hosts={num_hosts}", flush=True)
+    batch_size, mesh = cfg.data_loader.batch_size, None
+    if world > 1 or n_data * tile > 1:
+        # one shard per device where there are enough, else all on the first
+        per = n_data * tile // world
+        mesh = make_mesh(MeshCfg(data_axis=n_data, tile_axis=tile),
+                         devices=local[:per] if per <= len(local) else local[:1])
+        if batch_size % n_data:
+            raise ValueError(f"batch size {batch_size} not divisible by the data axis {n_data}")
+        # this process loads the examples of its data rows (JAX's host-local
+        # batch); the ranks of one tile group load the same ones
+        batch_size = batch_size // n_data * len(mesh.data_rows)
+    host_id, num_hosts = (0, 1) if mesh is None else mesh.loader_shard
+    log = print if rank == 0 else (lambda *a, **k: None)
+    log(f"mesh: data={n_data} tile={tile} hosts={world}", flush=True)
 
     step_holder = {"step": 0}
     batches = batch_iterator(
-        cfg, "train", host_id, num_hosts, lambda: step_holder["step"]
+        cfg, "train", host_id, num_hosts, lambda: step_holder["step"], batch_size
     )
     first = next(batches)
 
-    print("initializing model...", flush=True)
+    log("initializing model...", flush=True)
     torch.manual_seed(cfg.seed)
     model = build_model(cfg, dev)
-    print("model initialized", flush=True)
+    log("model initialized", flush=True)
     if cfg.weights is not None:
         from .training.pretrained import load_pretrained_frozen
 
         load_pretrained_frozen(cfg.weights, model)
 
     state = init_train_state(model)
-    ckpt = CheckpointManager(cfg.checkpointing)
+    # rank 0 writes, every rank restores
+    ckpt = CheckpointManager(cfg.checkpointing, writer=rank == 0)
     # restore_latest may warm-start from checkpointing.load, which also
     # carries that run's frozen/ dir — so resolve state BEFORE deciding
     # whether frozen weights exist.
     restored = ckpt.restore_latest(state)
     if restored is not None:
         state = restored
-        print(f"resumed from step {int(state.step)}")
+        log(f"resumed from step {int(state.step)}")
     had_frozen = ckpt.has_frozen()
     ckpt.save_frozen(frozen_state(model))
+    # decided once, by the writer, after its write
+    had_frozen = broadcast_from_rank0(had_frozen)
     if had_frozen:
         # Resume must reuse the run's frozen perception weights (converted
         # or first-init), not a fresh re-init — otherwise a resumed run
@@ -187,7 +201,7 @@ def run_train(cfg, device=None) -> None:
             },
             "target": {"image": to_device(raw["target"]["image"])},
         }
-        return b if mesh is None else shard_batch(mesh, b)
+        return b  # with a mesh: this process's rows, already on its device
 
     def next_batch():
         nonlocal batches
@@ -195,48 +209,61 @@ def run_train(cfg, device=None) -> None:
             return to_batch(next(batches))
         except StopIteration:
             batches = batch_iterator(
-                cfg, "train", host_id, num_hosts, lambda: step_holder["step"]
+                cfg, "train", host_id, num_hosts, lambda: step_holder["step"], batch_size
             )
             return to_batch(next(batches))
 
     # Scalar stream (the reference's wandb.log equivalent): one JSONL row
-    # per log step under the run directory.
+    # per log step under the run directory, written by rank 0.
     log_dir = cfg.output_dir or Path(cfg.test.output_path).parent / "logs"
-    logger = LocalLogger(log_dir)
+    logger = LocalLogger(log_dir) if rank == 0 else None
+
+    def step_kwargs(step: int, batch) -> dict:
+        gen = step_generator(cfg.seed, step, dev)
+        if mesh is None:
+            return dict(generator=gen)
+        # the host batch's RANSAC draws, this rank's rows of them
+        views = batch["context"]["image"].shape[1]
+        return dict(generator=gen, ransac_noise=shard_batch(
+            mesh, model.ransac_noise(cfg.data_loader.batch_size, views, gen)))
 
     # The step counter lives on the host; batch N+1 is decoded by the data
     # workers while step N runs and moved to the device from pinned memory.
     t0 = time.time()
     batch = to_batch(first)
     step = int(state.step)
-    if cfg.train.sanity_validation and step == 0:
+    if cfg.train.sanity_validation and step == 0 and rank == 0:
         # Reference `num_sanity_val_steps` — fail fast on broken
         # visualization/render paths before hours of training.
         run_validation(cfg, model, batch, step_generator(cfg.seed, VALIDATION_STREAM, dev),
                        step)
     while step < cfg.max_steps:
-        state, aux = step_fn(state, batch, generator=step_generator(cfg.seed, step, dev))
+        state, aux = step_fn(state, batch, **step_kwargs(step, batch))
         step += 1
         step_holder["step"] = step
         if step < cfg.max_steps:
             batch = next_batch()
         if step % cfg.train.print_log_every_n_steps == 0:
             scalars = {k: v for k, v in aux.items() if v.dim() == 0}
-            a = dict(zip(scalars, torch.stack(
-                [v.float() for v in scalars.values()]).tolist()))  # one transfer
+            values = torch.stack([v.float() for v in scalars.values()])
+            if mesh is not None:
+                # the global batch's values, as the JAX step reports them
+                all_reduce_mean([values], mesh)
+            a = dict(zip(scalars, values.tolist()))  # one transfer
             dt = time.time() - t0
             t0 = time.time()
             parts = " ".join(
                 f"{k}={v:.5f}" for k, v in sorted(a.items())
                 if k not in ("loss", "psnr", "mse")
             )
-            print(
+            log(
                 f"step {step}: loss={a['loss']:.5f} psnr={a['psnr']:.2f} "
                 f"mse={a['mse']:.5f} {parts} {dt:.2f}s",
                 flush=True,
             )
-            logger.log_scalars(step, a | {"seconds": dt})
-        if step % cfg.train.val_check_interval == 0:
+            if logger is not None:
+                logger.log_scalars(step, a | {"seconds": dt, "world_size": world})
+        if step % cfg.train.val_check_interval == 0 and rank == 0:
             run_validation(cfg, model, batch,
                            step_generator(cfg.seed, VALIDATION_STREAM + step, dev), step)
         final = step >= cfg.max_steps
@@ -244,7 +271,8 @@ def run_train(cfg, device=None) -> None:
             # an off-interval last step must be forced, or short runs end
             # checkpoint-less
             ckpt.maybe_save(state, force=final)
-    logger.close()
+    if logger is not None:
+        logger.close()
 
 
 def run_validation(cfg, model, batch, generator, step) -> None:

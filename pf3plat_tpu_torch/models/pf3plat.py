@@ -26,7 +26,9 @@ from .backbones.superpoint import SuperPoint
 from .backbones.unidepth import UniDepth, UniDepthCfg
 from .backbones.vgg_lpips import LPIPS
 from .decoder import DecoderCfg, decode
-from .encoder import Correspondences, EncoderCfg, EncoderOutput, FrozenInputs, PoseFreeEncoder
+from ..geometry.procrustes import gumbel_noise
+from .encoder import (
+    Correspondences, EncoderCfg, EncoderOutput, FrozenInputs, PoseFreeEncoder, view_pairs)
 from .types import DecoderOutput
 
 
@@ -83,6 +85,16 @@ class PF3plat(nn.Module):
         """Frozen LPIPS distance (b, h, w, 3) x2 -> (b,); the gradient flows
         to the images, not to the VGG (`pf3plat.py:128-138`)."""
         return self.lpips(img0, img1)
+
+    def ransac_noise(self, b: int, v: int, generator: torch.Generator) -> torch.Tensor:
+        """The encoder's RANSAC draws for `b` stacks of `v` views, as
+        `forward` draws them from `generator` when it is given none: a
+        caller that holds some rows of a larger batch draws the whole batch's
+        and passes its own rows, as the JAX package's per-example keys split
+        from the global batch do."""
+        shape = (b, len(view_pairs(v)[0]), self.cfg.encoder.ransac_samples,
+                 self.cfg.max_matches)
+        return gumbel_noise(shape, generator, self.device, torch.float32)
 
     def forward(
         self,

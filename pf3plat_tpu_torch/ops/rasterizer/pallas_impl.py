@@ -32,7 +32,9 @@ only with the count: the chunk-reset semantics of the streamed kernels.
 With a `mesh` of more than one shard (`parallel.Mesh`) the table's (batch *
 tile) rows split evenly over the shards and the composite runs once per
 shard on its rows, on the shard's device (`pallas_impl.py:531-551`); binning,
-the gather and its backward stay global.
+the gather and its backward stay global. Over several processes each runs
+its own shards, and the image tiles, d(table) and d(bg_rows) of the others
+come from their owners (`ShardedTable`).
 
 Dispatch: `composite_table_fwd` / `composite_table_bwd` launch the
 hand-written kernels (`csrc/table_fwd.cu`, `csrc/table_bwd.cu`: B6 is the
@@ -46,6 +48,7 @@ from __future__ import annotations
 
 import torch
 
+from ...parallel.collectives import gather_in_shard_order, shard_rows
 from . import kernels
 from .binning import BinnedTiles
 from .streamed import (
@@ -54,7 +57,6 @@ from .streamed import (
     heaviest_first,
     n_processed,
     running_sum,
-    shard_ranges,
     tiles_to_image,
 )
 from .types import RasterizeConfig, ScreenGaussians
@@ -281,6 +283,39 @@ class CompositeTable(torch.autograd.Function):
         return dtab, None, None, dbg, None, None, None
 
 
+class ShardedTable(torch.autograd.Function):
+    """`CompositeTable`'s image over the row shards of a mesh: B6 forward and
+    B7 backward once per shard this process owns, on the shard's rows; the
+    image tiles (forward) and d(table), d(bg_rows) (backward) of every row
+    shard are concatenated in shard order (`gather_in_shard_order`)."""
+
+    @staticmethod
+    def forward(ctx, table, counts, tile_ids, bg_rows, tiles_x, channels, config, mesh):
+        shards = shard_rows(table.shape[0], mesh)
+        saved, imgs = [], {}
+        for k, lo, hi, dev in shards:
+            piece = [x[lo:hi].to(dev).contiguous() for x in (table, counts, tile_ids, bg_rows)]
+            img, tfin, tchk = composite_table_fwd(*piece, tiles_x, channels, config)
+            saved += [*piece, tfin, tchk]
+            imgs[k] = [img]
+        ctx.save_for_backward(*saved)
+        ctx.meta = (tiles_x, channels, config, shards, mesh)
+        return torch.cat([img for img, in gather_in_shard_order(imgs, mesh)])
+
+    @staticmethod
+    def backward(ctx, g_img):
+        tiles_x, channels, config, shards, mesh = ctx.meta
+        grads = {}
+        for i, (k, lo, hi, dev) in enumerate(shards):
+            table, counts, tile_ids, bg_rows, tfin, tchk = ctx.saved_tensors[6 * i:6 * i + 6]
+            grads[k] = composite_table_bwd(
+                table, counts, tile_ids, bg_rows, tfin, tchk,
+                g_img[lo:hi].to(dev, torch.float32).contiguous(), torch.zeros_like(tfin),
+                tiles_x, channels, config)
+        dtab, dbg = (torch.cat(parts) for parts in zip(*gather_in_shard_order(grads, mesh)))
+        return dtab, None, None, dbg, None, None, None, None
+
+
 def prepare_tables(screen: ScreenGaussians, binned: BinnedTiles, background,
                    config: RasterizeConfig) -> dict:
     """Everything before kernel B6: the dense feature tables of a batch of
@@ -341,16 +376,8 @@ def composite_tiles_pallas_batched(
     args = prepare_tables(screen, binned, background, config)
     row_args = (args["table"], args["counts"], args["tile_ids"], args["bg_rows"])
     if mesh is not None and mesh.size > 1:
-        shards = shard_ranges(args["table"].shape[0], mesh)
-        rps = shards[0][1]
-        # `split` keeps the table's backward one concatenation of the
-        # shards' d(table) instead of one zero-padded plane per shard.
-        pieces = zip(*(x.split(rps) for x in row_args))
-        home = mesh.devices[0]
-        img_tiles = torch.cat([
-            CompositeTable.apply(*(x.to(dev) for x in piece), args["tiles_x"],
-                                 args["channels"], config)[0].to(home)
-            for piece, (_, _, dev) in zip(pieces, shards)])
+        img_tiles = ShardedTable.apply(*row_args, args["tiles_x"], args["channels"], config,
+                                       mesh)
     else:
         img_tiles, _ = CompositeTable.apply(*row_args, args["tiles_x"], args["channels"],
                                             config)

@@ -14,7 +14,10 @@ streamed pipeline with pair compaction on:
     (kernel B4) all run on the shard's own arrays, on the shard's device;
   * the backward's only merge is the sum over shards of the per-gaussian
     partial sums (9 * b*n floats) and of the small background gradient,
-    taken on the first device in shard order (the JAX package's `psum`).
+    taken on the first device in shard order (the JAX package's `psum`);
+    over several processes each runs only its own shards, and the image
+    tiles and partial sums of its tile group's other shards come from their
+    owners before the merge (`parallel.collectives.gather_in_shard_order`).
 
 A shard's tiles see the same pairs in the same order as the single-device
 pipeline; only each tile's chunk alignment differs (segment starts are
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from ...parallel.collectives import gather_in_shard_order, mesh_batch, shard_rows
 from .compact import N_FEAT
 from .streamed import (
     composite_bwd,
@@ -35,7 +39,6 @@ from .streamed import (
     n_processed,
     pair_sort_compacted,
     segment_rows,
-    shard_ranges,
     tiles_to_image,
     unsort_reduce,
 )
@@ -79,16 +82,17 @@ class ShardLocalRasterize(torch.autograd.Function):
         b, n = depth.shape
         channels = color.shape[-1]
         rows = b * num_tiles
-        shards = shard_ranges(rows, mesh)
-        budget_s = shard_pairs_budget(config, b, n, len(shards))
-        home = mesh.devices[0]
+        shards = shard_rows(rows, mesh)
+        # sized for the whole mesh, as every shard of the one-process mesh is
+        budget_s = shard_pairs_budget(config, mesh_batch(b, mesh), n, mesh.size)
+        home = mesh.home
         screen = ScreenGaussians(xy=xy, depth=depth, conic=conic, radius=radius,
                                  color=color, opacity=opacity, valid=valid)
         tile_ids_full = torch.arange(num_tiles, dtype=torch.int32, device=home).repeat(b)
         bg_rows_full = torch.repeat_interleave(background.to(torch.float32), num_tiles, dim=0)
 
-        saved, tiles = [], []
-        for lo, hi, dev in shards:
+        saved, tiles = [], {}
+        for k, lo, hi, dev in shards:
             scr = ScreenGaussians(*(f.to(dev) for f in screen))
             featP, ids_sorted, starts, _, _, _ = pair_sort_compacted(
                 scr, image_shape, config, tile_lo=lo, n_tiles_out=hi - lo,
@@ -99,32 +103,34 @@ class ShardLocalRasterize(torch.autograd.Function):
             img_tiles, tfin, tchk = composite_fwd(featP, base, off, counts, tile_ids, bg_rows,
                                                   tiles_x, channels, config)
             saved += [featP, ids_sorted, base, off, counts, tile_ids, bg_rows, tfin, tchk]
-            tiles.append(img_tiles.to(home))
+            tiles[k] = [img_tiles]
         ctx.save_for_backward(*saved)
-        ctx.meta = (b, n, tiles_x, tiles_y, channels, config, shards)
-        out = tiles_to_image(torch.cat(tiles), b, tiles_x, tiles_y, channels, ts)
+        ctx.meta = (b, n, tiles_x, tiles_y, channels, config, shards, mesh)
+        img_tiles = torch.cat([t for t, in gather_in_shard_order(tiles, mesh)])
+        out = tiles_to_image(img_tiles, b, tiles_x, tiles_y, channels, ts)
         return out[:, :h, :w]
 
     @staticmethod
     def backward(ctx, g_img):
-        b, n, tiles_x, tiles_y, channels, config, shards = ctx.meta
-        home = shards[0][2]
+        b, n, tiles_x, tiles_y, channels, config, shards, mesh = ctx.meta
         g_tiles = image_to_tiles(g_img.to(torch.float32), tiles_x, tiles_y, config.tile_size)
-        d = None
-        dbgs = []
-        for k, (lo, hi, dev) in enumerate(shards):
+        parts = {}
+        for i, (k, lo, hi, dev) in enumerate(shards):
             featP, ids_sorted, base, off, counts, tile_ids, bg_rows, tfin, tchk = \
-                ctx.saved_tensors[k * N_SAVED:(k + 1) * N_SAVED]
+                ctx.saved_tensors[i * N_SAVED:(i + 1) * N_SAVED]
             dP, dbg = composite_bwd(featP, base, off, counts, tile_ids, n_processed(tchk),
                                     bg_rows, tfin, tchk, g_tiles[lo:hi].to(dev), tiles_x,
                                     channels, config)
             # Partial per-gaussian sums: a gaussian's <= max_dup pairs may
-            # lie in several shards. Summed over the shards in shard order.
-            part = unsort_reduce(dP, ids_sorted, b, n, True, config).to(home)
-            d = part if d is None else d + part
-            dbgs.append(dbg.to(home))
+            # lie in several shards.
+            parts[k] = [unsort_reduce(dP, ids_sorted, b, n, True, config), dbg]
+        gathered = gather_in_shard_order(parts, mesh)
+        d = gathered[0][0]
+        for part, _ in gathered[1:]:  # summed in shard order
+            d = d + part
         d = d.T.reshape(b, n, N_FEAT)
-        d_bg = torch.cat(dbgs).reshape(b, tiles_x * tiles_y, channels).sum(dim=1)
+        d_bg = torch.cat([dbg for _, dbg in gathered]).reshape(
+            b, tiles_x * tiles_y, channels).sum(dim=1)
         return (d[..., 0:2], d[..., 2:5], d[..., 5], d[..., 6 : 6 + channels], d_bg,
                 None, None, None, None, None, None)
 

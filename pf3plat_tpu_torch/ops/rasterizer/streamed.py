@@ -41,6 +41,7 @@ from .compact import (
     dup_reduce,
     pairs_budget,
 )
+from ...parallel.collectives import gather_in_shard_order, mesh_batch, shard_rows
 from .types import RasterizeConfig, ScreenGaussians
 
 
@@ -586,28 +587,19 @@ def unsort_reduce(dP, ids_sorted, b: int, n: int, compacted: bool, config: Raste
     return grads.view(N_FEAT, b * n, config.max_dup).sum(dim=-1)
 
 
-def shard_ranges(rows: int, mesh) -> list:
-    """The mesh's shards as (first row, end row, device) over `rows` tile
-    rows, row-major over the mesh axes."""
-    n_shards = mesh.size
-    if rows % n_shards:
-        raise ValueError(f"{rows} tile rows not divisible by mesh size {n_shards}")
-    rps = rows // n_shards
-    return [(k * rps, (k + 1) * rps, dev) for k, dev in enumerate(mesh.devices)]
-
-
 def _on_shards(fn, row_args: dict, shared: dict, mesh):
-    """Run `fn(**rows of the shard, **shared)` per shard on the shard's
-    device; the outputs come back to the first device, concatenated in
-    shard order. `row_args` are split along their first axis."""
+    """Run `fn(**rows of the shard, **shared)` for each shard this process
+    owns, on the shard's device; every row shard's outputs come back to the
+    first device, concatenated in shard order (`gather_in_shard_order`).
+    `row_args` are split along their first axis."""
     rows = next(iter(row_args.values())).shape[0]
-    home = mesh.devices[0]
-    outs = []
-    for lo, hi, dev in shard_ranges(rows, mesh):
-        sliced = {k: v[lo:hi].to(dev) for k, v in row_args.items()}
-        moved = {k: v.to(dev) if isinstance(v, torch.Tensor) else v for k, v in shared.items()}
-        outs.append([o.to(home) for o in fn(**sliced, **moved)])
-    return [torch.cat(parts) for parts in zip(*outs)]
+    outs = {}
+    for k, lo, hi, dev in shard_rows(rows, mesh):
+        sliced = {name: v[lo:hi].to(dev) for name, v in row_args.items()}
+        moved = {name: v.to(dev) if isinstance(v, torch.Tensor) else v
+                 for name, v in shared.items()}
+        outs[k] = fn(**sliced, **moved)
+    return [torch.cat(parts) for parts in zip(*gather_in_shard_order(outs, mesh))]
 
 
 ROW_ARGS = ("base", "off", "counts", "tile_ids", "bg_rows")
@@ -686,7 +678,7 @@ def composite_streamed_batched(
     Without compaction only the compositing kernels' rows are split; the
     pair sort and the gradient unsort stay global."""
     b, n = screen.depth.shape
-    if mesh is not None and mesh.size > 1 and use_compaction(config, b, n):
+    if mesh is not None and mesh.size > 1 and use_compaction(config, mesh_batch(b, mesh), n):
         from .shard_local import composite_shard_local
 
         return composite_shard_local(screen, image_shape, background, config, mesh)

@@ -9,7 +9,10 @@ change. `restore_latest` warm-starts from `load` (another run's directory,
 its `frozen/` carried along) when this run has no state of its own.
 
 Layout under `directory`: `state/<step>/state.pt` and `frozen/frozen.pt`
-(each written to a temporary name and renamed into place).
+(each written to a temporary name and renamed into place). Over several
+processes only the manager made with `writer=True` (rank 0) writes: the
+state is replicated, so one copy is the whole of it (orbax's multi-process
+save writes one copy of a replicated tree); every rank restores.
 
 `load_jax_checkpoint` reads a JAX-package orbax checkpoint into the port
 (only where `orbax` imports).
@@ -62,8 +65,9 @@ def _save_atomic(obj, path: Path) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, cfg: CheckpointCfg):
+    def __init__(self, cfg: CheckpointCfg, writer: bool = True):
         self.cfg = cfg
+        self.writer = writer
         path = Path(cfg.directory).absolute()
         path.mkdir(parents=True, exist_ok=True)
         self._state_dir = path / "state"
@@ -84,7 +88,7 @@ class CheckpointManager:
 
     def save_frozen(self, frozen: dict) -> None:
         """Write `frozen` ({module: state_dict}) unless this run has it."""
-        if not self.has_frozen():
+        if self.writer and not self.has_frozen():
             tmp = self._frozen_dir.with_name(f"frozen.tmp{os.getpid()}")
             _save_atomic({k: {n: t.detach().cpu() for n, t in sd.items()}
                           for k, sd in frozen.items()}, tmp / "frozen.pt")
@@ -97,7 +101,10 @@ class CheckpointManager:
     def maybe_save(self, state: TrainState, force: bool = False) -> bool:
         """Save if the step is on the interval; `force=True` saves regardless
         (an off-interval last step of a run would end checkpoint-less). A
-        step at or before the latest saved one is never written."""
+        step at or before the latest saved one is never written, nor any by
+        a manager that is not the writer."""
+        if not self.writer:
+            return False
         step = int(state.step)
         latest = self.latest_step()
         if latest is not None and latest >= step:
