@@ -15,6 +15,7 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # then phases main_train, main_test and
                                      # trace only
     python3 chip_smoke.py --procs    # build, then phase procs_mesh only
+    python3 chip_smoke.py --memory   # build, then phase memory_policy only
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -110,6 +111,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after a warm-up, B1-B4 once, loss and gradient norm equal to
                `make_model_train_step`'s from the same parameters and
                generator (1e-4 relative);
+     memory_policy - the encoder's memory and precision knobs: (a) the
+               train phase's step at b=3 under remat off, selective and
+               coarse (a warm-up, then one timed step each: ms, stage split,
+               peak bytes of the step and of each stage, loss and gradient
+               norm within 1e-4 of remat off's, selective's peak below
+               off's, attention launches as derived from the code for each
+               mode: 24 ViT forwards + 18 encoder forwards and backwards, and
+               18 forwards more under remat); (b) the selective step at
+               unet_dtype = costvolume_dtype = bfloat16 (ms, peak, loss
+               within 2e-2 of the float32 step's), and one traced step of
+               each with its heaviest device operations; (c) `main` on
+               configs/re10k.yaml at its own batch of 14 (the default remat,
+               2 steps over 28 synthetic training scenes in
+               build/memory_data): ms, data_wait_ms, stage split, peak
+               bytes, launches (B1-B4 once a step), and the bytes an example
+               adds over (a)'s b=3;
   7. main_train - the training entry point, `main([...])` as
                `python -m pf3plat_tpu_torch.main` runs it, on
                configs/re10k.yaml at full width (b=3: the published
@@ -1836,6 +1853,76 @@ def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset())
     return captured, launches, out.color.cpu()
 
 
+def attention_per_step(cfg) -> dict:
+    """Attention-kernel launches of one training step of the model `cfg`
+    (`PF3platCfg`), counted from the model's code: the frozen ViT's `depth`
+    self-attentions run forward only (perception takes no gradient); the
+    encoder's SelfBlocks over 2048 tokens or more (`depth_self_attn_*` on the
+    49 x 49 backbone grid, `pose_transformers_*` and `pose_self_attn_*` on
+    64 x 64 tokens + 1) run forward and backward, n_attn_layers each; the
+    CrossBlocks, the swin windows and the U-Nets' attention stay on SDPA.
+    Under remat each of those SelfBlocks runs its forward once more in the
+    backward."""
+    trainable = 3 * cfg.encoder.n_attn_layers
+    return {"attention_fwd": cfg.unidepth.vit.depth + trainable * (2 if cfg.encoder.remat else 1),
+            "attention_bwd": trainable}
+
+
+def train_batch():
+    """The training batch of record from numpy seed SEED, on the card:
+    b=3, 2 context views + 1 target spliced by the union trick (the target
+    stack is the context stack), 256x256 (re10k.yaml)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEED)
+    b, v, h, w = 3, 3, 256, 256
+    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
+    intr = torch.as_tensor(np.broadcast_to(
+        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
+        device="cuda")
+    return dict(context=dict(image=images, intrinsics=intr, near=torch.ones((b, v), device="cuda"),
+                             far=torch.full((b, v), 100.0, device="cuda")),
+                target=dict(image=images))
+
+
+class StageTimer:
+    """A train step's `timer` callback: a CUDA event at the end of each
+    stage, and the peak device memory of each stage (the allocator's host
+    accounting, its peak reset as each stage ends)."""
+
+    STAGES = ("perceive", "encoder", "decoder", "loss", "backward", "optimizer")
+
+    def __init__(self):
+        self.events, self.peaks = {}, {}
+
+    def _mark(self, stage):
+        import torch
+
+        self.events[stage] = torch.cuda.Event(enable_timing=True)
+        self.events[stage].record()
+        self.peaks[stage] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+    def start(self):
+        self._mark("start")
+
+    def __call__(self, stage):
+        self._mark(stage)
+
+    def stage_ms(self) -> dict:
+        """{"<stage>_ms": ms} from the previous stage's end (or the start)."""
+        out, prev = {}, "start"
+        for stage in self.STAGES:
+            if stage in self.events:
+                out[f"{stage}_ms"] = self.events[prev].elapsed_time(self.events[stage])
+                prev = stage
+        return out
+
+    def stage_peak_bytes(self) -> dict:
+        return {k: v for k, v in self.peaks.items() if k != "start"}
+
+
 def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
     """The training step of record on the card through
     `DecoderCfg(impl=impl)` (production rasterizer config unless `raster` is
@@ -1843,7 +1930,6 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
     render inputs are kept for the kernel checks), then `n_steps` timed
     steps -> (captured render inputs, launches, the warm-up's and the steps'
     losses and gradient norms, the attention shapes seen)."""
-    import numpy as np
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
@@ -1864,17 +1950,10 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
         if exact:  # the blocks backward takes B3's place
             per_step_launches = {"composite_fwd": 1, "composite_bwd_blocks": 1, "composite_bwd": 0}
         per_step_launches = {k: n * mesh.size for k, n in per_step_launches.items()}
-    rng = np.random.default_rng(SEED)
-    # re10k.yaml: b=3, 2 context views + 1 target spliced by the union
-    # trick (the target stack is the context stack), 256x256
-    b, v, h, w = 3, 3, 256, 256
-    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
-    intr = torch.as_tensor(np.broadcast_to(
-        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
-        device="cuda")
-    batch = dict(context=dict(image=images, intrinsics=intr, near=torch.ones((b, v), device="cuda"),
-                              far=torch.full((b, v), 100.0, device="cuda")),
-                 target=dict(image=images))
+    if mesh is None:  # a mesh runs the encoder once a data shard
+        per_step_launches.update(attention_per_step(model.cfg))
+    batch = train_batch()
+    b, v, h, w = batch["context"]["image"].shape[:4]
     step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg(), mesh=mesh)
     if mesh is not None:
         step_fn = shard_train_step(step_fn, mesh)
@@ -1887,18 +1966,12 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
-    stages = ("perceive", "encoder", "decoder", "loss", "backward", "optimizer")
-    per_step = []
+    per_step, peak = [], 0
     for _ in range(n_steps):
-        events = {"start": torch.cuda.Event(enable_timing=True)}
-
-        def timer(stage, events=events):
-            events[stage] = torch.cuda.Event(enable_timing=True)
-            events[stage].record()
-
+        timer = StageTimer()
         before = dict(kernels.LAUNCHES)
         wall0 = time.perf_counter()
-        events["start"].record()
+        timer.start()
         state, aux = step_fn(state, batch, generator=gen, timer=timer)
         torch.cuda.synchronize()
         row = dict(total_ms=(time.perf_counter() - wall0) * 1e3)
@@ -1908,14 +1981,11 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
         if wrong or missing:
             raise AssertionError(f"train {impl}: launches in a step {wrong} (want "
                                  f"{per_step_launches}); not launched: {missing}")
-        prev = "start"
-        for stage in stages:
-            row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
-            prev = stage
+        row.update(timer.stage_ms())
         row.update({k: float(x) for k, x in aux.items()})
         per_step.append(row)
+        peak = max(peak, *timer.peaks.values())
     launches = dict(kernels.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
     for row in per_step:
         bad = [k for k, x in row.items() if not math.isfinite(x)]
         if bad:
@@ -2095,14 +2165,14 @@ MAIN_REDUCED = ["data_loader.batch_size 14 -> 3 (the published single-GPU protoc
                 "checkpointing.keep 5 -> 2"]
 
 
-def write_main_data(root: Path) -> list[Path]:
+def write_main_data(root: Path, scenes: int = 2, splits=("train", "test")) -> list[Path]:
     """Two dataset roots of synthetic RE10K-shaped scenes from numpy seed 0,
     one of `.pfchunk` files (the port's `write_pfchunk`) and one of `.torch`
-    chunks, each with `train/` and `test/` splits of 2 chunks x 2 scenes x
-    80 frames of 360 x 640 JPEGs (quality 90): a smooth texture panned
-    across the frames with camera rows to match (normalised fx 0.86, fy
-    1.53, the camera moving 0.02 a frame along x). The training scenes are
-    drawn first (keys `<root>_<chunk>_<scene>`), then the test scenes (keys
+    chunks, each with `splits` of 2 chunks x `scenes` scenes x 80 frames of
+    360 x 640 JPEGs (quality 90): a smooth texture panned across the frames
+    with camera rows to match (normalised fx 0.86, fy 1.53, the camera
+    moving 0.02 a frame along x). The training scenes are drawn first (keys
+    `<root>_<chunk>_<scene>`), then the test scenes (keys
     `test_<root>_<chunk>_<scene>`)."""
     import io
     import shutil
@@ -2119,11 +2189,13 @@ def write_main_data(root: Path) -> list[Path]:
     shift = 4  # pixels a frame
     roots = [root / "pfchunk", root / "torch"]
     for split, prefix in (("train", ""), ("test", "test_")):
+        if split not in splits:
+            continue
         for kind, r in zip(("pfchunk", "torch"), roots):
             (r / split).mkdir(parents=True)
             for c in range(2):
-                scenes = []
-                for s in range(2):
+                chunk = []
+                for s in range(scenes):
                     small = (rng.uniform(0, 255, (h // 8, (w + shift * MAIN_FRAMES) // 8, 3))
                              .astype(np.uint8))
                     tex = np.asarray(Image.fromarray(small).resize(
@@ -2141,14 +2213,14 @@ def write_main_data(root: Path) -> list[Path]:
                         Image.fromarray(tex[:, f * shift:f * shift + w]).save(
                             buf, format="JPEG", quality=MAIN_JPEG_QUALITY)
                         frames.append(buf.getvalue())
-                    scenes.append({"key": f"{prefix}{kind}_{c}_{s}", "cameras": cams,
-                                   "images": frames})
+                    chunk.append({"key": f"{prefix}{kind}_{c}_{s}", "cameras": cams,
+                                  "images": frames})
                 if kind == "pfchunk":
-                    write_pfchunk(r / split / f"{c:06}.pfchunk", scenes)
+                    write_pfchunk(r / split / f"{c:06}.pfchunk", chunk)
                 else:
                     torch.save([{"key": sc["key"], "cameras": torch.from_numpy(sc["cameras"]),
                                  "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8)
-                                            for b in sc["images"]]} for sc in scenes],
+                                            for b in sc["images"]]} for sc in chunk],
                                r / split / f"{c:06}.torch")
     return roots
 
@@ -2214,7 +2286,6 @@ def instrument_main(on_call=None, after_call=None, timed: bool = True):
 
     rec = {"steps": [], "data_wait_ms": []}
     make_step, batch_iterator = train_mod.make_model_train_step, port_main.batch_iterator
-    stages = ("perceive", "encoder", "decoder", "loss", "backward", "optimizer")
 
     def recording_make_step(model, *args, **kwargs):
         step = make_step(model, *args, **kwargs)
@@ -2231,26 +2302,20 @@ def instrument_main(on_call=None, after_call=None, timed: bool = True):
                 if after_call is not None:
                     after_call(index)
                 return state, aux
-            events = {"start": torch.cuda.Event(enable_timing=True)}
-
-            def timer(stage):
-                events[stage] = torch.cuda.Event(enable_timing=True)
-                events[stage].record()
-
+            timer = StageTimer()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             wall0 = time.perf_counter()
-            events["start"].record()
+            timer.start()
             state, aux = step(state, batch, timer=timer, **kw)
             torch.cuda.synchronize()
             row = dict(step=state.step, ms=(time.perf_counter() - wall0) * 1e3,
+                       batch=int(batch["context"]["image"].shape[0]),
                        views=int(batch["context"]["image"].shape[1]),
                        launches={k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES},
-                       max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-            prev = "start"
-            for stage in stages:
-                row[f"{stage}_ms"] = events[prev].elapsed_time(events[stage])
-                prev = stage
+                       max_memory_allocated_bytes=max(timer.peaks.values()),
+                       stage_peak_bytes=timer.stage_peak_bytes())
+            row.update(timer.stage_ms())
             row.update(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]))
             rec["steps"].append(row)
             if after_call is not None:
@@ -2672,6 +2737,206 @@ def train_frozen() -> dict:
     del model, state, batch, frozen, corr
     torch.cuda.empty_cache()
     return launches
+
+
+# Phase memory_policy: the encoder's remat modes and compute dtypes on the
+# training step of record, then `main` at configs/re10k.yaml's own batch.
+REMAT_MODES = {"off": dict(remat=False), "selective": dict(remat=True, remat_mode="selective"),
+               "coarse": dict(remat=True, remat_mode="coarse")}
+BF16_KNOBS = dict(unet_dtype="bfloat16", costvolume_dtype="bfloat16")
+# Loss and gradient norm of the remat modes' steps against the step without
+# remat, relative: the recompute replays the same forward, but the encoder's
+# backward is not bit-reproducible on the card (the sharded step's gate).
+TOL_REMAT = TOL_TRAIN_MESH
+# Loss of the selective step at unet_dtype = costvolume_dtype = bfloat16
+# against the float32 step's, relative: the depth predictor's outputs move by
+# a few bfloat16 steps of their largest value (up to 8 held on the CPU,
+# tests/test_torch_remat.py), and the loss averages over the pixels they feed.
+TOL_BF16_LOSS = 2e-2
+# `main` at the batch of record: 2 roots x 2 chunks x MEMORY_SCENES training
+# scenes, 28, so two batches of 14 draw no scene twice.
+MEMORY_DATA = REPO / "build" / "memory_data"
+MEMORY_OUT = REPO / "build" / "memory_out"
+MEMORY_SCENES = 7
+MEMORY_REDUCED = ["max_steps 300001 -> 2"]
+
+
+def policy_step(knobs: dict, trace_dir: Path | None = None) -> dict:
+    """The training step of record (the train phase's model, batch and
+    seeds, `streamed` decoder) with the encoder knobs `knobs`: a warm-up
+    step, then one timed step -> its ms, stage split, peak bytes (whole step
+    and per stage), loss, gradient norm and launches, and the warm-up's loss
+    and gradient norm. Fails unless the attention kernels ran as often as
+    `attention_per_step` derives for the knobs and B1-B4 once. With
+    `trace_dir`, one more step is traced there and its ten heaviest device
+    operations are returned."""
+    import gc
+    import shutil
+
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training.losses import LossCfg
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, init_train_state, make_model_train_step)
+    from pf3plat_tpu_torch.utils import profiling
+
+    cfg = model_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, **knobs))
+    torch.manual_seed(SEED)
+    model = PF3plat(cfg, device="cuda")
+    batch = train_batch()
+    step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg())
+    state = init_train_state(model)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    state, warm = step_fn(state, batch, generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    timer = StageTimer()
+    wall0 = time.perf_counter()
+    timer.start()
+    state, aux = step_fn(state, batch, generator=gen, timer=timer)
+    torch.cuda.synchronize()
+    row = dict(knobs=knobs, remat_policy=cfg.encoder.remat_policy,
+               total_ms=(time.perf_counter() - wall0) * 1e3, **timer.stage_ms(),
+               max_memory_allocated_bytes=max(timer.peaks.values()),
+               stage_peak_bytes=timer.stage_peak_bytes(),
+               loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]),
+               warmup=dict(loss=float(warm["loss"]), grad_norm=float(warm["grad_norm"])),
+               launches=dict(kernels.LAUNCHES))
+    want = {**{k: 1 for k in TRAIN_KERNELS["streamed"]}, **attention_per_step(cfg)}
+    wrong = {k: (row["launches"][k], n) for k, n in want.items() if row["launches"][k] != n}
+    if wrong:
+        raise AssertionError(f"memory_policy {knobs}: launches in a step (got, derived) {wrong}")
+    if not all(math.isfinite(x) for x in (row["loss"], row["grad_norm"],
+                                          *row["warmup"].values())):
+        raise AssertionError(f"memory_policy {knobs}: non-finite {row}")
+    if trace_dir is not None:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        with profiling.trace(trace_dir, "memory_policy_step"):
+            step_fn(state, batch, generator=gen)
+        row["trace"] = trace_window(trace_dir, "memory_policy_step")
+    del model, state, step_fn, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def main_batch_of_record() -> dict:
+    """`main` on configs/re10k.yaml at its own batch of 14 (no batch
+    override; default remat, selective), 2 steps over MEMORY_DATA, as `python
+    -m pf3plat_tpu_torch.main` runs it. Per step: ms, data_wait_ms, the
+    stage split, peak bytes (whole step and per stage), launches. Gates: 2
+    finite steps of 14 examples; B1-B4 once a step and the attention
+    kernels as `attention_per_step` derives. On a failure (an out-of-memory
+    error, say) the steps so far and the allocator's peak are printed
+    first."""
+    import gc
+    import shutil
+
+    import torch
+
+    from pf3plat_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    roots = write_main_data(MEMORY_DATA, scenes=MEMORY_SCENES, splits=("train",))
+    data_s = time.perf_counter() - t0
+    shutil.rmtree(MEMORY_OUT, ignore_errors=True)
+    argv = [str(REPO / "configs" / "re10k.yaml"),
+            "dataset.roots=" + json.dumps([str(r) for r in roots]), "max_steps=2",
+            f'checkpointing.directory="{MEMORY_OUT / "ckpt"}"', f'output_dir="{MEMORY_OUT}"',
+            f'test.output_path="{MEMORY_OUT}/test/x"']
+    cfg = load_config(argv[0], argv[1:])
+    if (cfg.data_loader.batch_size, cfg.encoder.remat_policy) != (14, "selective"):
+        raise AssertionError(f"configs/re10k.yaml: batch {cfg.data_loader.batch_size}, remat "
+                             f"{cfg.encoder.remat_policy}, not the batch of record 14, selective")
+    want = {**{k: 1 for k in TRAIN_KERNELS["streamed"]}, **attention_per_step(model_config())}
+    t0 = time.perf_counter()
+    rec = None
+    try:
+        with instrument_main() as rec:
+            out = run_main(argv)
+    except Exception as e:
+        emit(dict(phase="main_batch_of_record", failed=repr(e)[:600],
+                  steps=[] if rec is None else rec["steps"],
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  max_memory_reserved_bytes=torch.cuda.max_memory_reserved()))
+        raise
+    run_s = time.perf_counter() - t0
+    steps = rec["steps"]
+    for i, row in enumerate(steps):  # batch k was waited for before step k
+        row["data_wait_ms"] = rec["data_wait_ms"][i]
+    bad = [(r["step"], r["batch"], r["loss"]) for r in steps
+           if r["batch"] != 14 or not math.isfinite(r["loss"])]
+    wrong = [(r["step"], k, r["launches"][k], n) for r in steps for k, n in want.items()
+             if r["launches"][k] != n]
+    if len(steps) != 2 or bad or wrong or "failed" in out:
+        raise AssertionError(f"main at the batch of record: {len(steps)} steps, (step, batch, "
+                             f"loss) off {bad}, launches (step, kernel, got, derived) {wrong}\n"
+                             + out[-2000:])
+    row = dict(phase="main_batch_of_record", config="configs/re10k.yaml", reduced=MEMORY_REDUCED,
+               batch=[14, steps[0]["views"], 256, 256], data_s=data_s,
+               data=[f"{r.name}: 2 chunks x {MEMORY_SCENES} scenes x {MAIN_FRAMES} frames of "
+                     f"{MAIN_IMAGE[0]}x{MAIN_IMAGE[1]} JPEG q{MAIN_JPEG_QUALITY}" for r in roots],
+               run_s=run_s, steps=[{k: v for k, v in r.items() if k != "launches"} for r in steps],
+               launches_per_step=steps[0]["launches"], derived_launches=want,
+               max_memory_allocated_bytes=max(r["max_memory_allocated_bytes"] for r in steps),
+               memory_total_bytes=torch.cuda.get_device_properties(0).total_memory)
+    emit(row)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def memory_policy() -> None:
+    """Phase memory_policy. (a) The training step of record at b=3 under
+    remat off, selective and coarse: loss and gradient norm within TOL_REMAT
+    of the step without remat (warm-up and timed step), selective's peak
+    below off's, attention launches as derived for each mode. (b) The
+    selective step at unet_dtype = costvolume_dtype = bfloat16: its loss
+    within TOL_BF16_LOSS of the float32 step's and not equal to it; one
+    traced step of each, float32 and bfloat16, with their heaviest device
+    operations. (c) `main` at the batch of record (`main_batch_of_record`);
+    its peak against (a)'s at b=3 gives the bytes an example adds."""
+    rows = {mode: policy_step(knobs, TRACE_DIR / "memory_f32" if mode == "selective" else None)
+            for mode, knobs in REMAT_MODES.items()}
+    off = rows["off"]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    worst = max(rel(r[k], off[k]) for r in rows.values() for k in ("loss", "grad_norm"))
+    worst = max(worst, max(rel(r["warmup"][k], off["warmup"][k]) for r in rows.values()
+                           for k in ("loss", "grad_norm")))
+    below = rows["selective"]["max_memory_allocated_bytes"] < off["max_memory_allocated_bytes"]
+    emit(dict(phase="memory_remat", batch=[3, 3, 256, 256],
+              modes={m: {k: v for k, v in r.items() if k != "trace"} for m, r in rows.items()},
+              max_rel_diff=worst,
+              tol=TOL_REMAT, selective_peak_below_off=below))
+    if not worst <= TOL_REMAT:
+        raise AssertionError(f"memory_policy: remat modes' loss / grad_norm differ by {worst} "
+                             f"> {TOL_REMAT}")
+    if not below:
+        raise AssertionError("memory_policy: selective remat's peak is not below remat=false's")
+
+    f32 = rows["selective"]
+    bf16 = policy_step({**REMAT_MODES["selective"], **BF16_KNOBS}, TRACE_DIR / "memory_bf16")
+    loss_rel = rel(bf16["loss"], f32["loss"])
+    emit(dict(phase="memory_bf16", knobs=bf16["knobs"], step=bf16, float32_step_ms=f32["total_ms"],
+              float32_peak_bytes=f32["max_memory_allocated_bytes"],
+              float32_loss=f32["loss"], loss_rel_diff=loss_rel, tol=TOL_BF16_LOSS,
+              grad_norm_rel_diff=rel(bf16["grad_norm"], f32["grad_norm"]),
+              float32_trace=f32["trace"]))
+    if not 0 < loss_rel <= TOL_BF16_LOSS:
+        raise AssertionError(f"memory_policy: bfloat16 step's loss differs from float32's by "
+                             f"{loss_rel}, not in (0, {TOL_BF16_LOSS}]")
+
+    rec = main_batch_of_record()
+    peak3, peak14 = f32["max_memory_allocated_bytes"], rec["max_memory_allocated_bytes"]
+    emit(dict(phase="memory_per_example", peak_b3_bytes=peak3, peak_b14_main_bytes=peak14,
+              bytes_per_example=(peak14 - peak3) / 11))
 
 
 def bf16_operands():
@@ -3254,6 +3519,12 @@ def main(argv) -> int:
         print(smi, flush=True)
         return 0
 
+    if "--memory" in argv:
+        # the memory and precision policy alone
+        memory_policy()
+        print(smi, flush=True)
+        return 0
+
     if "--attention-ablations" in argv:
         attention_ablations()
         print(smi, flush=True)
@@ -3389,6 +3660,8 @@ def main(argv) -> int:
     del scene, screen, captured
     torch.cuda.empty_cache()
     train_frozen()
+    torch.cuda.empty_cache()
+    memory_policy()
 
     # The training entry point at full width, its resume, the serving entry
     # point restored from it, then the traced windows (main's loop, a

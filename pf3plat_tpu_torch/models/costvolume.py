@@ -11,7 +11,8 @@ from torch import nn
 
 from ..geometry.projection import se3_inverse
 from .layers import gelu
-from .nhwc import Conv, GroupNorm, resize_bilinear, resize_nearest
+from .nhwc import Conv, GroupNorm, parse_dtype, resize_bilinear, resize_nearest
+from .remat import remat
 from .unet import Named, UNetModel
 
 
@@ -45,13 +46,17 @@ def bilinear_sample(img: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torc
 def warp_with_pose_depth_candidates(feature, intrinsics, pose, depth, clamp_min_depth=1e-3):
     """Plane-sweep warp: (b, h, w, c) source features sampled at the
     reprojection of each target pixel under each depth candidate
-    -> (b, d, h, w, c). `intrinsics` in pixels, `pose` target->source."""
+    -> (b, d, h, w, c). `intrinsics` in pixels, `pose` target->source.
+    The pixel grid is made in the features' dtype and promoted with the
+    cameras' (the JAX code's `jnp.arange(w, dtype=feature.dtype)`); the
+    sample is the promotion of the features' and the positions' dtypes."""
     b, h, w, c = feature.shape
     d = depth.shape[1]
     dev, dt = feature.device, feature.dtype
     gy, gx = torch.meshgrid(torch.arange(h, device=dev, dtype=dt),
                             torch.arange(w, device=dev, dtype=dt), indexing="ij")
     grid = torch.stack([gx, gy, torch.ones_like(gx)], dim=-1).reshape(-1, 3)
+    grid = grid.to(torch.promote_types(dt, intrinsics.dtype))
     k_inv = torch.linalg.inv(intrinsics)
     rays = torch.einsum("bij,nj->bni", k_inv, grid)
     rot = torch.einsum("bij,bnj->bni", pose[:, :3, :3], rays)
@@ -76,8 +81,18 @@ class DepthPredictorCfg:
     depth_unet_feat_dim: int = 32
     depth_unet_attn_res: Sequence[int] = (16,)
     depth_unet_channel_mult: Sequence[int] = (1, 1, 1, 1, 1)
-    # Depth candidates warped per step (bounds the warped-feature buffer).
+    # Compute dtype of both U-Nets' convolutions (`unet.py`).
+    unet_dtype: str = "float32"
+    # Dtype the plane sweep gathers its features in; the correlation goes
+    # back to the features' dtype.
+    costvolume_dtype: str = "float32"
+    # Depth candidates warped per step. When it divides the candidates into
+    # several chunks, each chunk's warp and correlation are recomputed in
+    # the backward, so no chunk's warped features outlive its forward;
+    # otherwise one pass runs over all candidates.
     costvolume_scan_chunk: int = 16
+    # Recompute both U-Nets in the backward (the encoder's selective remat).
+    remat_unets: bool = False
 
 
 class DepthPredictorMultiView(Named):
@@ -91,12 +106,15 @@ class DepthPredictorMultiView(Named):
         cv = cfg.costvolume_unet_feat_dim
         du = cfg.depth_unet_feat_dim
         gpp = cfg.gaussians_per_pixel
+        unet_dtype = parse_dtype(cfg.unet_dtype)
+        self.cv_dtype = parse_dtype(cfg.costvolume_dtype)
         k = self.keep
         k("cv_in", "Conv", Conv(d + c, cv, 3))
         k("cv_gn", "GroupNorm", GroupNorm(8, cv))
         k("cv_unet", "UNetModel", UNetModel(
             cv, cv, cv, attention_resolutions=cfg.costvolume_unet_attn_res,
-            channel_mult=cfg.costvolume_unet_channel_mult, num_views=cfg.num_views))
+            channel_mult=cfg.costvolume_unet_channel_mult, num_views=cfg.num_views,
+            dtype=unet_dtype))
         k("cv_out", "Conv", Conv(cv, d, 3))
         k("cv_skip", "Conv", Conv(d + c, d, 1))
         k("mono0", "Conv", Conv(d, d, 3, stride=2))
@@ -116,7 +134,8 @@ class DepthPredictorMultiView(Named):
         k("refine_gn", "GroupNorm", GroupNorm(4, du))
         k("refine_unet", "UNetModel", UNetModel(
             du, du, du, attention_resolutions=cfg.depth_unet_attn_res,
-            channel_mult=cfg.depth_unet_channel_mult, num_views=cfg.num_views))
+            channel_mult=cfg.depth_unet_channel_mult, num_views=cfg.num_views,
+            dtype=unet_dtype))
         raw = cfg.gaussian_raw_channels
         k("g0", "Conv", Conv(du + 3 + c, raw * 2, 3))
         k("g1", "Conv", Conv(raw * 2, raw, 3))
@@ -151,22 +170,29 @@ class DepthPredictorMultiView(Named):
 
         corr_sum = torch.zeros((v * b, d, h4, w4), device=dev, dtype=dt)
         c2w = se3_inverse(extrinsics)
-        dc = cfg.costvolume_scan_chunk if d % cfg.costvolume_scan_chunk == 0 else d
+        dc = cfg.costvolume_scan_chunk
+        feat_vb_cv = feat_vb.to(self.cv_dtype)
+
+        def corr_of(feat_other, rel_vb, depth_chunk):
+            warped = warp_with_pose_depth_candidates(feat_other, intr_vb, rel_vb, depth_chunk)
+            return ((feat_vb_cv[:, None] * warped).sum(-1) / (c**0.5)).to(dt)
+
         for shift in range(1, v):
             order = [(i + shift) % v for i in range(v)]
             feat_other = features[:, order].transpose(0, 1).reshape(v * b, h4, w4, c)
+            feat_other = feat_other.to(self.cv_dtype)
             rel = torch.matmul(extrinsics[:, order], c2w)
             rel_vb = rel.transpose(0, 1).reshape(v * b, 4, 4)
-            parts = []
-            for s in range(0, d, dc):
-                warped = warp_with_pose_depth_candidates(
-                    feat_other, intr_vb, rel_vb, depth_candi[:, s : s + dc])
-                parts.append((feat_vb[:, None] * warped).sum(-1) / (c**0.5))
-            corr_sum = corr_sum + torch.cat(parts, dim=1)
+            if d % dc == 0 and d > dc:
+                corr = torch.cat([remat(corr_of, feat_other, rel_vb, depth_candi[:, s : s + dc])
+                                  for s in range(0, d, dc)], dim=1)
+            else:
+                corr = corr_of(feat_other, rel_vb, depth_candi)
+            corr_sum = corr_sum + corr
         raw_in = torch.cat([(corr_sum / (v - 1)).permute(0, 2, 3, 1), feat_vb], dim=-1)
 
         x = gelu(self.cv_gn(self.cv_in(raw_in)))
-        x = self.cv_unet(x)
+        x = remat(self.cv_unet, x, enabled=cfg.remat_unets)
         raw_corr = self.cv_out(x) + self.cv_skip(raw_in)
 
         mono = gelu(self.mono1(gelu(self.mono0(monocular_cue))))
@@ -189,7 +215,7 @@ class DepthPredictorMultiView(Named):
         proj_feature = self.proj(proj_full)
         r = torch.cat([images, proj_feature, disparity, pdf_max], dim=-1)
         r = gelu(self.refine_gn(self.refine_in(r)))
-        refine_out = self.refine_unet(r)
+        refine_out = remat(self.refine_unet, r, enabled=cfg.remat_unets)
 
         g = gelu(self.g0(torch.cat([refine_out, images, proj_full], dim=-1)))
         raw_gaussians = self.g1(g).reshape(v, b, h * w, cfg.gaussian_raw_channels)

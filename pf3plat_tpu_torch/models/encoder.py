@@ -34,6 +34,7 @@ from .layers import (
 )
 from .multiview_transformer import MultiViewFeatureTransformer
 from .nhwc import Conv, resize_bilinear
+from .remat import remat
 from .types import Gaussians
 
 
@@ -67,9 +68,18 @@ class EncoderCfg:
     opacity_initial: float = 0.0
     opacity_final: float = 0.0
     opacity_warm_up: int = 1
+    # Recompute the trainable stacks in the backward instead of keeping
+    # their activations: every pose/depth attention block and the
+    # cross-view aggregator, then under "selective" the depth predictor's
+    # two U-Nets, under any other mode the whole depth predictor.
+    remat: bool = True
+    remat_mode: str = "selective"
+    # Compute dtypes ("float32", "bfloat16", ...) of the two U-Nets'
+    # convolutions and of the plane sweep's features (`costvolume.py`).
+    unet_dtype: str = "float32"
+    costvolume_dtype: str = "float32"
     # Depth candidates warped per plane-sweep step (bounds the warped
-    # feature buffer); the JAX config's remat/dtype training knobs are not
-    # ported.
+    # feature buffer).
     costvolume_scan_chunk: int = 16
     gaussian_adapter: GaussianAdapterCfg = GaussianAdapterCfg()
     costvolume_unet_feat_dim: int = 128
@@ -78,6 +88,14 @@ class EncoderCfg:
     depth_unet_feat_dim: int = 32
     depth_unet_attn_res: Sequence[int] = (16,)
     depth_unet_channel_mult: Sequence[int] = (1, 1, 1, 1, 1)
+
+    @property
+    def remat_policy(self) -> str:
+        """"off", "selective" or "coarse": any `remat_mode` but "selective"
+        is coarse, as the JAX encoder reads it."""
+        if not self.remat:
+            return "off"
+        return "selective" if self.remat_mode == "selective" else "coarse"
 
 
 def view_pairs(v: int) -> tuple[tuple[int, ...], tuple[int, ...]]:
@@ -154,7 +172,10 @@ class PoseFreeEncoder(nn.Module):
             depth_unet_feat_dim=cfg.depth_unet_feat_dim,
             depth_unet_attn_res=tuple(cfg.depth_unet_attn_res),
             depth_unet_channel_mult=tuple(cfg.depth_unet_channel_mult),
+            unet_dtype=cfg.unet_dtype,
+            costvolume_dtype=cfg.costvolume_dtype,
             costvolume_scan_chunk=cfg.costvolume_scan_chunk,
+            remat_unets=cfg.remat_policy == "selective",
         ))
 
     def _blocks(self, prefix: str):
@@ -191,13 +212,13 @@ class PoseFreeEncoder(nn.Module):
         else:
             pos = position_embedding_sine(hd, wd, d // 2)
         maps = maps + pos.to(dev)[None]
-        maps = self.cross_view_aggregator(maps, splits)
+        maps = remat(self.cross_view_aggregator, maps, splits, enabled=cfg.remat)
         per_view_depth_features = resize_bilinear(maps, (h4, w4)).reshape(b, v, h4, w4, d)
 
         # ---- scale/shift depth refinement ----
         ss = self.in_features(pre_cross).reshape(b * v, hd * wd, cfg.d_pose)
         for blk in self._blocks("depth_self_attn"):
-            ss = blk(ss)
+            ss = remat(blk, ss, enabled=cfg.remat)
         ss = self.scale_shift_predictor(ss).reshape(b * v, hd, wd, 2)
         ss = resize_bilinear(ss, (h, w))
         shift = torch.clamp(ss[..., 1], -5.0, 5.0).reshape(b, v, h, w)
@@ -282,14 +303,15 @@ class PoseFreeEncoder(nn.Module):
         desc0 = self.conv_proj(desc0.reshape(b * v, h4, w4, d + 6)).reshape(b * v, h4 * w4, dp)
         desc0 = torch.cat([self.pose_cls_token.expand(b * v, 1, dp), desc0], dim=1)
         for blk in self._blocks("pose_transformers"):
-            desc0 = blk(desc0, encoding0)
+            desc0 = remat(blk, desc0, encoding0, enabled=cfg.remat)
         desc0 = desc0[:, 1:].reshape(b, v, h4 * w4, dp)
 
         rgb_feat = desc0 + get_2d_sincos_pos_embed(dp, h4, w4).to(dev)[None, None]
         rgb_feat = torch.cat([self.pose_token.expand(b, v, 1, dp), rgb_feat], dim=-2)
         n_tok = rgb_feat.shape[-2]
         for i in range(cfg.n_attn_layers):
-            rf = getattr(self, f"pose_self_attn_{i}")(rgb_feat.reshape(b * v, n_tok, dp))
+            rf = remat(getattr(self, f"pose_self_attn_{i}"), rgb_feat.reshape(b * v, n_tok, dp),
+                       enabled=cfg.remat)
             rgb_feat = rf.reshape(b, v, n_tok, dp)
             if v > 1:
                 cross_ctx = torch.stack([
@@ -298,7 +320,8 @@ class PoseFreeEncoder(nn.Module):
                 ], dim=1)
                 o = rgb_feat[:, 1:].reshape(b * (v - 1), n_tok, dp)
                 c = cross_ctx.reshape(b * (v - 1), (v - 1) * n_tok, dp)
-                o, _ = getattr(self, f"pose_cross_attn_{i}")(o, c, update_x1=False)
+                o, _ = remat(getattr(self, f"pose_cross_attn_{i}"), o, c, update_x1=False,
+                             enabled=cfg.remat)
                 rgb_feat = torch.cat([rgb_feat[:, :1], o.reshape(b, v - 1, n_tok, dp)], dim=1)
         rgb_feat = rgb_feat[:, :, 0]
 
@@ -307,7 +330,7 @@ class PoseFreeEncoder(nn.Module):
         pred_pose_enc = torch.cat([raw_rot, raw_trans], dim=-1)
         trunk = rgb_feat + self.embed_pose(pred_pose_enc)
         for blk in self._blocks("pose_trunk"):
-            trunk = blk(trunk)
+            trunk = remat(blk, trunk, enabled=cfg.remat)
         delta_pose = self.pose_branch(trunk)[..., :9]
         pred_pose = pred_pose_enc[:, 1:] + delta_pose[:, 1:] * self.pose_gamma
         pred_concat = torch.cat([pred_pose_enc[:, :1], pred_pose], dim=1)
@@ -324,11 +347,13 @@ class PoseFreeEncoder(nn.Module):
         def to_vb(x):
             return x.transpose(0, 1).reshape(vs * b, *x.shape[2:])
 
-        densities, raw_gaussians = self.depth_predictor(
+        densities, raw_gaussians = remat(
+            self.depth_predictor,
             per_view_depth_features[:, sel], intrinsics[:, sel], refined[:, sel],
             near[:, sel], far[:, sel], to_vb(images[:, sel]),
             to_vb((1.0 / depth)[:, sel][..., None]),
             to_vb(mono_cue_bv.reshape(b, v, h4, w4, dc)[:, sel]),
+            enabled=cfg.remat_policy == "coarse",
         )
         raw_gaussians = raw_gaussians.reshape(b, vs, h * w, cfg.num_surfaces, adapter.d_in + 2)
         offset_xy = torch.sigmoid(raw_gaussians[..., :2])

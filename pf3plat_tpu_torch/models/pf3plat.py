@@ -26,6 +26,7 @@ from .backbones.superpoint import SuperPoint
 from .backbones.unidepth import UniDepth, UniDepthCfg
 from .backbones.vgg_lpips import LPIPS
 from .decoder import DecoderCfg, decode
+from .remat import remat
 from ..geometry.procrustes import gumbel_noise
 from .encoder import (
     Correspondences, EncoderCfg, EncoderOutput, FrozenInputs, PoseFreeEncoder, view_pairs)
@@ -83,8 +84,10 @@ class PF3plat(nn.Module):
 
     def lpips_apply(self, img0: torch.Tensor, img1: torch.Tensor) -> torch.Tensor:
         """Frozen LPIPS distance (b, h, w, 3) x2 -> (b,); the gradient flows
-        to the images, not to the VGG (`pf3plat.py:128-138`)."""
-        return self.lpips(img0, img1)
+        to the images, not to the VGG (`pf3plat.py:128-138`). Its VGG
+        feature pyramid is recomputed in the backward, not held across the
+        step."""
+        return remat(self.lpips, img0, img1)
 
     def ransac_noise(self, b: int, v: int, generator: torch.Generator) -> torch.Tensor:
         """The encoder's RANSAC draws for `b` stacks of `v` views, as

@@ -1,6 +1,13 @@
 """LDM-style 2D U-Net with cross-view self-attention (NHWC), port of
 `pf3plat_tpu/models/unet.py`. Submodules are created in the Flax call order
-so their names (`Conv_k`, `ResBlock_k`, ...) match the JAX parameter tree."""
+so their names (`Conv_k`, `ResBlock_k`, ...) match the JAX parameter tree.
+
+`dtype` is the convolutions' compute dtype, with flax's promotion rules
+(`nhwc.py`): each conv returns `dtype`, GroupNorm computes and returns
+float32 (a bfloat16 input meets float32 parameters), residual adds and
+concatenations promote, the attention's softmax is taken in float32 and its
+output is float32 (the JAX `mxu_einsum`'s f32 result), and the model hands
+back its input's dtype."""
 
 from __future__ import annotations
 
@@ -33,15 +40,16 @@ class Named(nn.Module):
 
 
 class ResBlock(Named):
-    def __init__(self, c_in: int, out_channels: int, groups: int = 32):
+    def __init__(self, c_in: int, out_channels: int, groups: int = 32,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         g = min(groups, c_in, out_channels)
         self.keep("gn0", "GroupNorm", GroupNorm(g, c_in))
-        self.keep("conv0", "Conv", Conv(c_in, out_channels, 3))
+        self.keep("conv0", "Conv", Conv(c_in, out_channels, 3, dtype=dtype))
         self.keep("gn1", "GroupNorm", GroupNorm(g, out_channels))
-        self.keep("conv1", "Conv", Conv(out_channels, out_channels, 3))
+        self.keep("conv1", "Conv", Conv(out_channels, out_channels, 3, dtype=dtype))
         self.keep("skip", "Conv",
-                  Conv(c_in, out_channels, 1) if c_in != out_channels else None)
+                  Conv(c_in, out_channels, 1, dtype=dtype) if c_in != out_channels else None)
 
     def forward(self, x):
         h = self.conv0(F.silu(self.gn0(x)))
@@ -55,13 +63,14 @@ class CrossViewAttention(Named):
     """Self-attention over (v * h * w) tokens: every pixel attends across
     views."""
 
-    def __init__(self, c: int, num_head_channels: int = 32, num_views: int = 2):
+    def __init__(self, c: int, num_head_channels: int = 32, num_views: int = 2,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.num_views = num_views
         self.heads = max(1, c // num_head_channels)
         self.keep("gn", "GroupNorm", GroupNorm(min(32, c), c))
-        self.keep("qkv", "Conv", Conv(c, 3 * c, 1))
-        self.keep("proj", "Conv", Conv(c, c, 1))
+        self.keep("qkv", "Conv", Conv(c, 3 * c, 1, dtype=dtype))
+        self.keep("proj", "Conv", Conv(c, c, 1, dtype=dtype))
 
     def forward(self, x):
         vb, h, w, c = x.shape
@@ -82,48 +91,51 @@ class UNetModel(Named):
     def __init__(self, in_channels: int, model_channels: int, out_channels: int,
                  num_res_blocks: int = 1, attention_resolutions=(),
                  channel_mult=(1, 1, 1), num_head_channels: int = 32,
-                 num_views: int = 2):
+                 num_views: int = 2, dtype: torch.dtype | None = None):
         super().__init__()
         attn_res = tuple(attention_resolutions)
 
         def attn(c):
             return self.named("CrossViewAttention",
-                              CrossViewAttention(c, num_head_channels, num_views))
+                              CrossViewAttention(c, num_head_channels, num_views, dtype))
 
         ch = model_channels
-        self.keep("conv_in", "Conv", Conv(in_channels, ch, 3))
+        self.keep("conv_in", "Conv", Conv(in_channels, ch, 3, dtype=dtype))
         skip_ch = [ch]
         self.down = []  # ("res", block, attn|None) | ("down", conv)
         ds = 1
         for level, mult in enumerate(channel_mult):
             for _ in range(num_res_blocks):
-                blk = self.named("ResBlock", ResBlock(ch, mult * model_channels))
+                blk = self.named("ResBlock", ResBlock(ch, mult * model_channels, dtype=dtype))
                 ch = mult * model_channels
                 self.down.append(("res", blk, attn(ch) if ds in attn_res else None))
                 skip_ch.append(ch)
             if level != len(channel_mult) - 1:
-                self.down.append(("down", self.named("Conv", Conv(ch, ch, 3, stride=2))))
+                self.down.append(("down", self.named("Conv", Conv(ch, ch, 3, stride=2,
+                                                                  dtype=dtype))))
                 skip_ch.append(ch)
                 ds *= 2
-        self.keep("mid0", "ResBlock", ResBlock(ch, ch))
+        self.keep("mid0", "ResBlock", ResBlock(ch, ch, dtype=dtype))
         object.__setattr__(self, "mid_attn", attn(ch) if ds in attn_res else None)
-        self.keep("mid1", "ResBlock", ResBlock(ch, ch))
+        self.keep("mid1", "ResBlock", ResBlock(ch, ch, dtype=dtype))
         self.up = []  # (block, attn|None, upsample conv|None)
         for level, mult in list(enumerate(channel_mult))[::-1]:
             for i in range(num_res_blocks + 1):
                 cin = ch + skip_ch.pop()
-                blk = self.named("ResBlock", ResBlock(cin, mult * model_channels))
+                blk = self.named("ResBlock", ResBlock(cin, mult * model_channels,
+                                                      dtype=dtype))
                 ch = mult * model_channels
                 a = attn(ch) if ds in attn_res else None
                 upconv = None
                 if level and i == num_res_blocks:
-                    upconv = self.named("Conv", Conv(ch, ch, 3))
+                    upconv = self.named("Conv", Conv(ch, ch, 3, dtype=dtype))
                     ds //= 2
                 self.up.append((blk, a, upconv))
         self.keep("gn_out", "GroupNorm", GroupNorm(min(32, ch), ch))
-        self.keep("conv_out", "Conv", Conv(ch, out_channels, 3))
+        self.keep("conv_out", "Conv", Conv(ch, out_channels, 3, dtype=dtype))
 
     def forward(self, x):
+        in_dtype = x.dtype
         h = self.conv_in(x)
         skips = [h]
         for item in self.down:
@@ -144,4 +156,4 @@ class UNetModel(Named):
                 h = a(h)
             if upconv is not None:
                 h = upconv(resize_nearest(h, (h.shape[1] * 2, h.shape[2] * 2)))
-        return self.conv_out(F.silu(self.gn_out(h)))
+        return self.conv_out(F.silu(self.gn_out(h))).to(in_dtype)

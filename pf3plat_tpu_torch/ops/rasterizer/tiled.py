@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from ...models.remat import remat
 from .binning import BinnedTiles
 from .compositing import composite_chunk, gaussian_alpha
 from .types import RasterizeConfig, ScreenGaussians
@@ -54,17 +55,18 @@ def composite_tables(
     chunk = config.chunk
     if cap % chunk:
         raise ValueError("tile_capacity must be divisible by chunk")
-    t_carry = gathered.new_ones((num_tiles, px.shape[-1]))
-    accum = gathered.new_zeros((num_tiles, px.shape[-1], channels))
-    for i in range(cap // chunk):
-        data = gathered[:, i * chunk : (i + 1) * chunk]
-        valid = slot_valid[:, i * chunk : (i + 1) * chunk]
+
+    def body(t_carry, accum, data, valid):
         alpha = gaussian_alpha(
             px, py, data[..., 0:2], data[..., 2:5], data[..., 5 + channels], valid, config
         )
-        t_carry, accum = composite_chunk(
-            alpha, data[..., 5 : 5 + channels], t_carry, accum, config
-        )
+        return composite_chunk(alpha, data[..., 5 : 5 + channels], t_carry, accum, config)
+
+    t_carry = gathered.new_ones((num_tiles, px.shape[-1]))
+    accum = gathered.new_zeros((num_tiles, px.shape[-1], channels))
+    for i in range(cap // chunk):
+        t_carry, accum = remat(body, t_carry, accum, gathered[:, i * chunk : (i + 1) * chunk],
+                               slot_valid[:, i * chunk : (i + 1) * chunk])
     return accum + t_carry[..., None] * background[None, None, :]
 
 

@@ -2,9 +2,7 @@
 
 Port of `pf3plat_tpu/utils/config.py`: the same dataclass tree over the
 port's own config classes, read from the same `configs/*.yaml` with
-`yaml.safe_load`. The JAX package's `EncoderCfg` knobs the port has no
-counterpart for (`_JAX_ONLY`) are accepted at their JAX defaults and raise
-on any other value.
+`yaml.safe_load`.
 
 Plays the role of the reference's Hydra + dacite stack (`src/config.py:38-90`,
 `config/**/*.yaml`): a dataclass tree is the schema, YAML files provide
@@ -28,15 +26,6 @@ from ..training.losses import LossCfg
 from ..training.train import OptimizerCfg
 
 _RAW: dict = {}
-
-# EncoderCfg knobs of the JAX package (its models/encoder.py:107,121,125)
-# with no counterpart in the port, at their JAX defaults: rematerialisation
-# and the U-Nets' / cost volume's compute dtype. Any other value raises, so
-# a config never runs silently at another precision or memory policy.
-_JAX_ONLY = {
-    EncoderCfg: {"remat": True, "remat_mode": "selective",
-                 "unet_dtype": "float32", "costvolume_dtype": "float32"},
-}
 
 
 def set_raw_cfg(d: dict) -> None:
@@ -162,14 +151,6 @@ def _build(cls, data: dict):
     onto field defaults (unknown keys are errors, like dacite strict)."""
     import typing
 
-    fixed = _JAX_ONLY.get(cls, {})
-    for key in fixed.keys() & data.keys():
-        if data[key] != fixed[key]:
-            raise ValueError(
-                f"{cls.__name__}.{key}={data[key]!r}: the port runs only the "
-                f"JAX default {fixed[key]!r}"
-            )
-    data = {k: v for k, v in data.items() if k not in fixed}
     fields = {f.name: f for f in dataclasses.fields(cls)}
     for key in data:
         if key not in fields:

@@ -2,9 +2,9 @@
 the JAX package's, on the CPU.
 
 Every `configs/*.yaml` gives the port a `RootCfg` equal, field by field, to
-the JAX `load_config`'s (the JAX-only encoder knobs aside); overrides
-compose the same way; the JAX-only knobs are accepted at their JAX
-defaults and raise on any other value.
+the JAX `load_config`'s; overrides compose the same way, the encoder's
+memory and precision knobs (remat, remat_mode, unet_dtype,
+costvolume_dtype) included.
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import dataclasses
 from pathlib import Path
 
 import pytest
+import torch
 
 from pf3plat_tpu.utils import config as jconfig
 
@@ -20,16 +21,14 @@ from pf3plat_tpu_torch.utils import config as tconfig
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
 CONFIGS = sorted(p.name for p in CONFIG_DIR.glob("*.yaml"))
-JAX_ONLY = {"remat": True, "remat_mode": "selective", "unet_dtype": "float32",
-            "costvolume_dtype": "float32"}
+# The encoder's memory and precision knobs at their defaults.
+ENCODER_KNOBS = {"remat": True, "remat_mode": "selective", "unet_dtype": "float32",
+                 "costvolume_dtype": "float32"}
 
 
 def as_tree(cfg) -> dict:
-    """A config as nested dicts, without the JAX-only encoder knobs."""
-    tree = dataclasses.asdict(cfg)
-    for k in JAX_ONLY:
-        tree["encoder"].pop(k, None)
-    return tree
+    """A config as nested dicts."""
+    return dataclasses.asdict(cfg)
 
 
 def test_every_config_is_listed():
@@ -42,8 +41,8 @@ def test_config_matches_jax(name):
     want = jconfig.load_config(CONFIG_DIR / name)
     assert as_tree(got) == as_tree(want)
     assert tconfig.get_raw_cfg() == jconfig.get_raw_cfg()
-    # the JAX package runs these configs at the knobs' defaults
-    assert {k: getattr(want.encoder, k) for k in JAX_ONLY} == JAX_ONLY
+    # every config runs the knobs' defaults
+    assert {k: getattr(got.encoder, k) for k in ENCODER_KNOBS} == ENCODER_KNOBS
 
 
 @pytest.mark.parametrize("overrides", [
@@ -74,9 +73,9 @@ def test_unknown_key_raises():
         tconfig.load_config(None, ["encoder.no_such_knob=1"])
 
 
-@pytest.mark.parametrize("knob", sorted(JAX_ONLY))
-def test_jax_only_knob_at_default_accepted(knob):
-    value = JAX_ONLY[knob]
+@pytest.mark.parametrize("knob", sorted(ENCODER_KNOBS))
+def test_encoder_knob_at_default_matches_jax(knob):
+    value = ENCODER_KNOBS[knob]
     text = "true" if value is True else value
     ov = [f"encoder.{knob}={text}"]
     got = tconfig.load_config(CONFIG_DIR / "smoke.yaml", ov)
@@ -87,10 +86,25 @@ def test_jax_only_knob_at_default_accepted(knob):
     "encoder.remat=false", "encoder.remat_mode=full", "encoder.unet_dtype=bfloat16",
     "encoder.costvolume_dtype=bfloat16",
 ])
-def test_jax_only_knob_other_value_raises(override):
-    jconfig.load_config(CONFIG_DIR / "smoke.yaml", [override])  # the JAX package takes it
-    with pytest.raises(ValueError, match="JAX default"):
-        tconfig.load_config(CONFIG_DIR / "smoke.yaml", [override])
+def test_encoder_knob_matches_jax(override):
+    """Each knob off its default loads in both packages to equal configs;
+    `remat_mode` other than "selective" reads as coarse in both (the JAX
+    encoder remats the whole depth predictor then, encoder.py:215-226)."""
+    got = tconfig.load_config(CONFIG_DIR / "smoke.yaml", [override])
+    want = jconfig.load_config(CONFIG_DIR / "smoke.yaml", [override])
+    assert as_tree(got) == as_tree(want)
+    knob = override.split("=")[0].split(".")[1]
+    assert getattr(got.encoder, knob) != ENCODER_KNOBS[knob]
+    if knob == "remat_mode":
+        assert want.encoder.remat and want.encoder.remat_mode != "selective"
+        assert got.encoder.remat_policy == "coarse"
+    # and reaches the model `main` builds
+    from pf3plat_tpu_torch.main import build_model
+
+    dp = build_model(got, device="cpu").encoder.depth_predictor
+    assert dp.cfg.remat_unets == (got.encoder.remat_policy == "selective")
+    assert dp.cv_unet.conv_in.compute_dtype == getattr(torch, got.encoder.unet_dtype)
+    assert dp.cv_dtype == getattr(torch, got.encoder.costvolume_dtype)
 
 
 def test_build_model_reads_the_config():
