@@ -16,6 +16,12 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # trace only
     python3 chip_smoke.py --procs    # build, then phase procs_mesh only
     python3 chip_smoke.py --memory   # build, then phase memory_policy only
+    python3 chip_smoke.py --precision  # build, then phase precision only
+
+The port's declared precision policy (`precision.apply_policy`, as every
+entry point sets it) holds for the whole run: the timing phases run under
+it. Kernel gates, parity comparisons and gates whose two sides differ in
+shape (sharded against unsharded) run under `precision.exact()`.
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -85,11 +91,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                compared and the difference printed);
   5. depth   - `decode(..., depth_mode="depth")` on the served request's
                gaussians through both kernel backends;
-     perceive_precision - `PF3plat.perceive` on the serving request under
-               bf16 autocast (the default), in float32 ("highest") and in
-               float32 with bf16-rounded matmul / convolution operands (the
-               JAX package's rule): ms of each, depth, feature and match
-               differences from "highest";
+     precision - the port's precision rules on the serving request and
+               the training step of record: (a) every attention outside the
+               flash rule at its shape (swin windows, the U-Nets' cross-view
+               attention, pose and LightGlue blocks, CrossBlock),
+               `library_attention` (bf16 SDPA) against its twin's
+               arithmetic under exact(), forward and backward, ms of both
+               (TOL_ATTN); (b) each product the JAX package pins to
+               "highest" bit-equal to its exact() product under perception's
+               autocast and the policy; a request with
+               PF3PLAT_FLASH_ATTENTION=0 launches no attention kernel; (c)
+               the b=3 step with TF32 on and off: loss, gradient norm, ms,
+               one traced step each with the convolutions' device time; the
+               declared TF32 must be what TOL_TF32_STEP decides; (d)
+               perceive_precision: `PF3plat.perceive` in four modes (plain
+               bf16 autocast = the parent tree's rule, the port's default
+               with the decision heads at the JAX rule, float32 with
+               bf16-rounded operands = the JAX rule, "highest"): ms, depth,
+               feature and match differences from "highest", and the shares
+               of keypoints, detection-valid and match-valid flags that
+               agree with the JAX rule's and "highest"'s; the default no
+               worse than plain autocast on keypoints; (e) two identical
+               steps' spread with bf16 and with float32 SDPA, and the
+               operations `torch.use_deterministic_algorithms` names in a
+               step and a request;
   6. train   - the training step of record (configs/re10k.yaml: the same
                model, b=3, v=3 at 256x256 with the target stack = the
                context stack, LossCfg(), OptimizerCfg()), random weights from
@@ -115,7 +140,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
                train phase's step at b=3 under remat off, selective and
                coarse (a warm-up, then one timed step each: ms, stage split,
                peak bytes of the step and of each stage, loss and gradient
-               norm within 1e-4 of remat off's, selective's peak below
+               norm within 1e-4 of remat off's (the two steps once more
+               under exact() for this gate), selective's peak below
                off's, attention launches as derived from the code for each
                mode: 24 ViT forwards + 18 encoder forwards and backwards, and
                18 forwards more under remat); (b) the selective step at
@@ -1775,7 +1801,6 @@ def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset())
     """The serving request through `DecoderCfg(impl=impl)` -> (the decoder's
     captured inputs, launches, the last request's image on the CPU). Fails
     unless the request's attention ran at every one of `timed_shapes`."""
-    import numpy as np
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
@@ -1785,14 +1810,8 @@ def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset())
     t0 = time.perf_counter()
     model = PF3plat(model_config(impl, config="re10k_test.yaml"), device="cuda")
     build_s = time.perf_counter() - t0
-    rng = np.random.default_rng(SEED)
-    b, v, h, w = 1, 5, 256, 256
-    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
-    intr = torch.as_tensor(np.broadcast_to(
-        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
-        device="cuda")
-    near = torch.ones((b, v), device="cuda")
-    far = torch.full((b, v), 100.0, device="cuda")
+    images, intr, near, far = serving_inputs()
+    b, v, h, w = images.shape[:4]
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     def request(timer=None):
@@ -2761,7 +2780,7 @@ MEMORY_SCENES = 7
 MEMORY_REDUCED = ["max_steps 300001 -> 2"]
 
 
-def policy_step(knobs: dict, trace_dir: Path | None = None) -> dict:
+def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = False) -> dict:
     """The training step of record (the train phase's model, batch and
     seeds, `streamed` decoder) with the encoder knobs `knobs`: a warm-up
     step, then one timed step -> its ms, stage split, peak bytes (whole step
@@ -2769,11 +2788,15 @@ def policy_step(knobs: dict, trace_dir: Path | None = None) -> dict:
     and gradient norm. Fails unless the attention kernels ran as often as
     `attention_per_step` derives for the knobs and B1-B4 once. With
     `trace_dir`, one more step is traced there and its ten heaviest device
-    operations are returned."""
+    operations are returned. With `exact_steps`, the same two steps run once
+    more from the same parameters and generator under `exact()`: their
+    losses and gradient norms as `exact`."""
     import gc
     import shutil
 
     import torch
+
+    from pf3plat_tpu_torch.precision import exact
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
     from pf3plat_tpu_torch.ops.rasterizer import kernels
@@ -2788,6 +2811,7 @@ def policy_step(knobs: dict, trace_dir: Path | None = None) -> dict:
     model = PF3plat(cfg, device="cuda")
     batch = train_batch()
     step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg())
+    init = {k: v.clone() for k, v in model.encoder.state_dict().items()} if exact_steps else None
     state = init_train_state(model)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     state, warm = step_fn(state, batch, generator=gen)
@@ -2818,6 +2842,15 @@ def policy_step(knobs: dict, trace_dir: Path | None = None) -> dict:
         with profiling.trace(trace_dir, "memory_policy_step"):
             step_fn(state, batch, generator=gen)
         row["trace"] = trace_window(trace_dir, "memory_policy_step")
+    if exact_steps:
+        model.encoder.load_state_dict(init)
+        state = init_train_state(model)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with exact():
+            state, first = step_fn(state, batch, generator=gen)
+            state, second = step_fn(state, batch, generator=gen)
+        row["exact"] = dict(warmup={k: float(first[k]) for k in ("loss", "grad_norm")},
+                            **{k: float(second[k]) for k in ("loss", "grad_norm")})
     del model, state, step_fn, batch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2893,27 +2926,36 @@ def main_batch_of_record() -> dict:
 def memory_policy() -> None:
     """Phase memory_policy. (a) The training step of record at b=3 under
     remat off, selective and coarse: loss and gradient norm within TOL_REMAT
-    of the step without remat (warm-up and timed step), selective's peak
+    of the step without remat (warm-up and timed step, run once more under
+    `exact()` for this gate), selective's peak
     below off's, attention launches as derived for each mode. (b) The
     selective step at unet_dtype = costvolume_dtype = bfloat16: its loss
     within TOL_BF16_LOSS of the float32 step's and not equal to it; one
     traced step of each, float32 and bfloat16, with their heaviest device
     operations. (c) `main` at the batch of record (`main_batch_of_record`);
     its peak against (a)'s at b=3 gives the bytes an example adds."""
-    rows = {mode: policy_step(knobs, TRACE_DIR / "memory_f32" if mode == "selective" else None)
+    rows = {mode: policy_step(knobs, TRACE_DIR / "memory_f32" if mode == "selective" else None,
+                              exact_steps=True)
             for mode, knobs in REMAT_MODES.items()}
     off = rows["off"]
 
     def rel(a, b):
         return abs(a - b) / abs(b)
 
-    worst = max(rel(r[k], off[k]) for r in rows.values() for k in ("loss", "grad_norm"))
-    worst = max(worst, max(rel(r["warmup"][k], off["warmup"][k]) for r in rows.values()
-                           for k in ("loss", "grad_norm")))
+    # The modes compute one function in other structures (the backward
+    # replays the forward), and cuDNN's TF32 algorithm choice follows the
+    # memory state: the gate compares the modes' steps under exact(); the
+    # timed steps under the policy are printed beside it.
+    worst = max(rel(r["exact"][k], off["exact"][k]) for r in rows.values()
+                for k in ("loss", "grad_norm"))
+    worst = max(worst, max(rel(r["exact"]["warmup"][k], off["exact"]["warmup"][k])
+                           for r in rows.values() for k in ("loss", "grad_norm")))
+    policy_worst = max(max(rel(r[k], off[k]), rel(r["warmup"][k], off["warmup"][k]))
+                       for r in rows.values() for k in ("loss", "grad_norm"))
     below = rows["selective"]["max_memory_allocated_bytes"] < off["max_memory_allocated_bytes"]
     emit(dict(phase="memory_remat", batch=[3, 3, 256, 256],
               modes={m: {k: v for k, v in r.items() if k != "trace"} for m, r in rows.items()},
-              max_rel_diff=worst,
+              max_rel_diff=worst, policy_max_rel_diff=policy_worst,
               tol=TOL_REMAT, selective_peak_below_off=below))
     if not worst <= TOL_REMAT:
         raise AssertionError(f"memory_policy: remat modes' loss / grad_norm differ by {worst} "
@@ -2939,19 +2981,24 @@ def memory_policy() -> None:
               bytes_per_example=(peak14 - peak3) / 11))
 
 
+@contextlib.contextmanager
 def bf16_operands():
     """A torch function mode that rounds the operands of every matmul,
     convolution and library attention to bf16 and computes in float32: the
     JAX package's `default_matmul_precision("bfloat16")` (one bf16 pass,
-    float32 sums and outputs). Biases stay float32."""
+    float32 sums and outputs). Biases stay float32. The products the JAX
+    package pins to "highest" (`precision.exact_einsum`) are left exact."""
     import torch
     import torch.nn.functional as F
     from torch.overrides import TorchFunctionMode
+
+    from pf3plat_tpu_torch import precision
 
     two = {F.linear, torch.conv1d, torch.conv2d, F.conv1d, F.conv2d, F.conv_transpose2d}
     every = {torch.matmul, torch.Tensor.matmul, torch.Tensor.__matmul__, torch.mm, torch.bmm,
              torch.einsum, F.scaled_dot_product_attention}
     last_two = {torch.addmm, torch.baddbmm}
+    pinned = [0]  # > 0 inside a pinned product
 
     def rnd(x):
         if isinstance(x, torch.Tensor) and x.dtype == torch.float32:
@@ -2963,7 +3010,9 @@ def bf16_operands():
     class Mode(TorchFunctionMode):
         def __torch_function__(self, func, types, args=(), kwargs=None):
             kwargs = kwargs or {}
-            if func in two:
+            if pinned[0]:
+                pass
+            elif func in two:
                 args = (rnd(args[0]), rnd(args[1]), *args[2:])
             elif func in every:
                 args = tuple(rnd(a) for a in args)
@@ -2971,38 +3020,102 @@ def bf16_operands():
                 args = (args[0], rnd(args[1]), rnd(args[2]), *args[3:])
             return func(*args, **kwargs)
 
-    return Mode()
+    cls = precision._ExactEinsum
+    forward = cls.forward
+
+    def pinned_forward(ctx, *args):
+        pinned[0] += 1
+        try:
+            return forward(ctx, *args)
+        finally:
+            pinned[0] -= 1
+
+    cls.forward = staticmethod(pinned_forward)
+    try:
+        with Mode():
+            yield
+    finally:
+        cls.forward = staticmethod(forward)
 
 
-def perceive_precision() -> dict:
-    """`PF3plat.perceive` on the serving request (b=1, v=5, 256 x 256,
-    configs/re10k_test.yaml's model, random weights from the seed) three
-    ways: under bf16 autocast (the port's default on the card), with
-    `frozen_matmul_precision="highest"` (float32), and float32 modules with
-    bf16-rounded matmul and convolution operands (the JAX package's rule,
-    `bf16_operands`). Per mode: the ms of 3 calls after a warm-up (CUDA
-    events), and the depth, feature and match differences from "highest"."""
-    import contextlib as ctxlib
+@contextlib.contextmanager
+def heads_under_autocast():
+    """Perception's decision heads under plain bf16 autocast (bf16 outputs),
+    the parent tree's rule, in place of `precision.decision_head`'s JAX
+    rule."""
+    from pf3plat_tpu_torch import precision
 
+    rule = precision.decision_head
+    precision.decision_head = lambda layer, x: layer(x)
+    try:
+        yield
+    finally:
+        precision.decision_head = rule
+
+
+def serving_inputs():
+    """The serving request's inputs (b=1, v=5, 256 x 256) from numpy seed
+    SEED, on the card: images, intrinsics, near, far."""
     import numpy as np
     import torch
 
-    from pf3plat_tpu_torch.models.pf3plat import PF3plat
-
-    torch.manual_seed(SEED)
-    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
-    base = model.cfg
     rng = np.random.default_rng(SEED)
     b, v, h, w = 1, SERVE_VIEWS, 256, 256
     images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
     intr = torch.as_tensor(np.broadcast_to(
         np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
         device="cuda")
-    modes = {"autocast": ("bfloat16", ctxlib.nullcontext), "highest": ("highest", ctxlib.nullcontext),
-             "jax_rule": ("highest", bf16_operands)}
-    outs, ms = {}, {}
-    for name, (precision, scope) in modes.items():
-        model.cfg = dataclasses.replace(base, frozen_matmul_precision=precision)
+    return images, intr, torch.ones((b, v), device="cuda"), torch.full((b, v), 100.0, device="cuda")
+
+
+# Perception's modes in phase perceive_precision / precision (d): the frozen
+# precision and the scope it runs in. "autocast": bf16 autocast with the
+# heads under autocast too (the parent tree's rule); "default": the port's
+# rule (autocast, the decision heads at the JAX rule); "jax_rule": float32
+# modules with bf16-rounded operands (the JAX package's); "highest": exact
+# float32.
+PERCEIVE_MODES = ("autocast", "default", "jax_rule", "highest")
+
+
+def perceive_precision() -> dict:
+    """`PF3plat.perceive` on the serving request (b=1, v=5, 256 x 256,
+    configs/re10k_test.yaml's model, random weights from the seed) in the
+    four PERCEIVE_MODES, the autocast modes under the declared policy, the
+    other two under `exact()`. Per mode: the ms of 3 calls after a warm-up
+    (CUDA events), the depth, feature and match differences from "highest"
+    (line `perceive_precision`), and SuperPoint's and LightGlue's discrete
+    outputs of one more call against the JAX rule's and "highest"'s: the
+    share of keypoints at the same pixel and rank (`kpts_equal`), of
+    keypoints whose pixel the other mode also keeps in that image
+    (`kpts_shared`), of detection-valid flags and of match-valid flags that
+    agree (line `precision`, part d). Gate: the port's default agrees with
+    the JAX rule on keypoints, by both measures, at least as well as plain
+    autocast does."""
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.precision import exact
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
+    base = model.cfg
+    images, intr, _, _ = serving_inputs()
+    b, v, h, w = images.shape[:4]
+
+    def under_exact(scope):
+        @contextlib.contextmanager
+        def both():
+            with exact(), scope():
+                yield
+        return both
+
+    modes = {"autocast": ("bfloat16", heads_under_autocast),
+             "default": ("bfloat16", contextlib.nullcontext),
+             "jax_rule": ("highest", under_exact(bf16_operands)),
+             "highest": ("highest", exact)}
+    outs, ms, discrete = {}, {}, {}
+    for name, (frozen_precision, scope) in modes.items():
+        model.cfg = dataclasses.replace(base, frozen_matmul_precision=frozen_precision)
         with scope():
             model.perceive(images, intr)  # warm-up
             torch.cuda.synchronize()
@@ -3012,8 +3125,22 @@ def perceive_precision() -> dict:
                 frozen, corr = model.perceive(images, intr)
             end.record()
             torch.cuda.synchronize()
+            seen = {"kpts": [], "matches": []}
+            hooks = [model.superpoint.register_forward_hook(
+                         lambda mod, args, out: seen["kpts"].append(out)),
+                     model.lightglue.register_forward_hook(
+                         lambda mod, args, out: seen["matches"].append(out))]
+            try:
+                model.perceive(images, intr)
+            finally:
+                for hook in hooks:
+                    hook.remove()
         ms[name] = start.elapsed_time(end) / 3
         outs[name] = (frozen, corr)
+        discrete[name] = dict(
+            xy=torch.cat([k.xy.reshape(-1, *k.xy.shape[-2:]) for k in seen["kpts"]]),
+            valid=torch.cat([k.valid.reshape(-1) for k in seen["kpts"]]),
+            match_valid=torch.cat([m.valid.reshape(-1) for m in seen["matches"]]))
     model.cfg = base
 
     def rel(a, c):
@@ -3022,7 +3149,7 @@ def perceive_precision() -> dict:
 
     ref_f, ref_c = outs["highest"]
     diffs = {}
-    for name in ("autocast", "jax_rule"):
+    for name in ("autocast", "default", "jax_rule"):
         f, c = outs[name]
         both = c.valid & ref_c.valid
         diffs[name] = dict(
@@ -3032,17 +3159,462 @@ def perceive_precision() -> dict:
             kpts_equal=float((c.kpts0 == ref_c.kpts0).all(-1).float().mean()),
             scores_max_abs=float((c.scores - ref_c.scores)[both].abs().max()) if bool(both.any())
             else None)
-    ratio = {k: diffs["autocast"][k]["mean_rel"] / max(diffs["jax_rule"][k]["mean_rel"], 1e-30)
-             for k in ("depth", "features")}
+    ratio = {mode: {k: diffs[mode][k]["mean_rel"] / max(diffs["jax_rule"][k]["mean_rel"], 1e-30)
+                    for k in ("depth", "features")} for mode in ("autocast", "default")}
     emit(dict(phase="perceive_precision", batch=[b, v, h, w], perceive_ms=ms,
               jax_rule_cost=ms["jax_rule"] / ms["autocast"] - 1.0, diffs_from_highest=diffs,
-              autocast_over_jax_rule=ratio))
+              over_jax_rule=ratio))
     for name, (f, _) in outs.items():
         if not (bool(torch.isfinite(f.depth).all()) and bool(torch.isfinite(f.features).all())):
             raise AssertionError(f"perceive_precision: non-finite outputs under {name}")
+
+    def pixels(xy):
+        return xy[..., 1].long() * w + xy[..., 0].long()
+
+    def agreement(got, ref):
+        a, r = pixels(got["xy"]), pixels(ref["xy"])
+        shared = torch.stack([torch.isin(x, y) for x, y in zip(a, r)])
+        return dict(kpts_equal=float((got["xy"] == ref["xy"]).all(-1).float().mean()),
+                    kpts_shared=float(shared.float().mean()),
+                    detection_valid_agree=float((got["valid"] == ref["valid"]).float().mean()),
+                    match_valid_agree=float(
+                        (got["match_valid"] == ref["match_valid"]).float().mean()))
+
+    table = {mode: {ref: agreement(discrete[mode], discrete[ref])
+                    for ref in ("jax_rule", "highest") if ref != mode}
+             for mode in PERCEIVE_MODES}
+    counts = {mode: dict(keypoints=int(d["valid"].numel()), detections=int(d["valid"].sum()),
+                         matches=int(d["match_valid"].sum())) for mode, d in discrete.items()}
+    gate = all(table["default"]["jax_rule"][k] >= table["autocast"]["jax_rule"][k]
+               for k in ("kpts_equal", "kpts_shared"))
+    emit(dict(phase="precision", part="d", batch=[b, v, h, w], agreement=table, counts=counts,
+              default_at_least_autocast=gate))
+    if not gate:
+        raise AssertionError(f"precision (d): the default agrees with the JAX rule on keypoints "
+                             f"less than plain autocast does: {table}")
     del model, outs
     torch.cuda.empty_cache()
-    return dict(ms=ms, diffs=diffs, ratio=ratio)
+    return dict(ms=ms, diffs=diffs, ratio=ratio, agreement=table)
+
+
+# Phase precision: the port's precision rules on the card.
+# (c) TF32 may move one step of record's loss and gradient norm (from the
+# same parameters) by this much, relative, for the declared policy to allow
+# it; above it the policy is TF32 off.
+TOL_TF32_STEP = 1e-3
+PINNED_SPECS = {"bmd,bnd->bmn": "lightglue similarity",
+                "...shd,...shv->...hdv": "linear attention kv",
+                "...lhd,...hd->...lh": "linear attention normaliser",
+                "bnc,bmc->bnm": "cost volume fusion logits"}
+
+
+@contextlib.contextmanager
+def tf32(on: bool):
+    """cuBLAS and cuDNN TF32 set to `on` inside, the previous flags after."""
+    import torch
+
+    old = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def _caller_site(frame) -> str:
+    """The module class (or `window_attention`) that called into attention."""
+    import torch
+
+    for _ in range(6):
+        if frame is None:
+            break
+        owner = frame.f_locals.get("self")
+        if isinstance(owner, torch.nn.Module):
+            return type(owner).__name__
+        if frame.f_code.co_name == "window_attention":
+            return "window_attention"
+        frame = frame.f_back
+    return "?"
+
+
+@contextlib.contextmanager
+def capture_precision_sites():
+    """Record, inside the block, the first call of each distinct
+    `layers.library_attention` signature (its inputs, the calling module,
+    autocast on or off) and of each `precision.exact_einsum` spec and shape
+    (inputs, output, autocast)."""
+    import torch
+
+    from pf3plat_tpu_torch import precision
+    from pf3plat_tpu_torch.models import layers
+
+    seen = {"attention": {}, "pinned": {}}
+    library = layers.library_attention
+    cls = precision._ExactEinsum
+    forward = cls.forward
+
+    def recording(q, k, v, mask=None, bias=None, q_scale=None):
+        autocast = torch.is_autocast_enabled("cuda")
+        key = (tuple(q.shape), tuple(k.shape), mask is not None, bias is not None, q_scale,
+               autocast)
+        if key not in seen["attention"]:
+            keep = (lambda x: None if x is None else x.detach().clone())
+            seen["attention"][key] = dict(
+                site=_caller_site(sys._getframe(1)), q=keep(q).float(), k=keep(k).float(),
+                v=keep(v).float(), mask=keep(mask), bias=keep(bias), q_scale=q_scale,
+                autocast=autocast)
+        return library(q, k, v, mask=mask, bias=bias, q_scale=q_scale)
+
+    def pinned(ctx, spec, a, b):
+        out = forward(ctx, spec, a, b)
+        key = (spec, tuple(a.shape), tuple(b.shape))
+        if key not in seen["pinned"]:
+            seen["pinned"][key] = dict(spec=spec, a=a.detach().clone(), b=b.detach().clone(),
+                                       out=out.detach().clone(),
+                                       autocast=torch.is_autocast_enabled("cuda"))
+        return out
+
+    layers.library_attention = recording
+    cls.forward = staticmethod(pinned)
+    try:
+        yield seen
+    finally:
+        layers.library_attention = library
+        cls.forward = staticmethod(forward)
+
+
+def mxu_vjp(s: dict, g):
+    """The backward of `mxu_einsum` attention as the JAX package computes
+    it on its chip and FlashAttention-2 computes it (`attention_bwd_plain`'s
+    arithmetic): XLA's default precision rounds the operands of the
+    transposed products to bf16, so P and dS are rounded to bf16 before
+    their products, the sums are float32, and each gradient comes back in
+    its operand's dtype (bf16) -> (dq, dk, dv) of `library_attention`'s
+    float32 inputs for the upstream gradient g."""
+    import torch
+
+    from pf3plat_tpu_torch.models import layers
+
+    def bf(x):
+        return x.to(torch.bfloat16).float()
+
+    q_scale = s["q_scale"]
+    q = bf(s["q"] * q_scale) if q_scale is not None else bf(s["q"])
+    k, v, gb = bf(s["k"]), bf(s["v"]), bf(g)
+    scale = 1.0 if q_scale is not None else s["q"].shape[-1]**-0.5
+    sim = torch.matmul(q, k.transpose(-1, -2)) * scale
+    add = layers._additive_mask(s["mask"], s["bias"], sim)
+    if add is not None:  # added in bf16, as `library_attention` adds it
+        sim = sim + bf(add)
+    p = torch.softmax(sim, dim=-1)
+    del sim
+    out = bf(torch.matmul(bf(p), v))
+    delta = (gb * out).sum(-1, keepdim=True)
+    ds = bf(p * (torch.matmul(gb, v.transpose(-1, -2)) - delta))
+    dv = torch.matmul(bf(p).transpose(-1, -2), gb)
+    del p
+    dq = bf(torch.matmul(ds, k) * scale) * (1.0 if q_scale is None else q_scale)
+    dk = torch.matmul(ds.transpose(-1, -2), q) * scale
+    return dq, bf(dk), bf(dv)
+
+
+def attention_sites(sites: dict) -> list:
+    """Part (a): each captured library attention at its shape, the card's
+    `library_attention` (outside autocast, under the policy) against its
+    twin's arithmetic under `exact()`. The forward against `mxu_attention`
+    (the CPU path): within TOL_ATTN of the largest magnitude. The backward,
+    with a fixed upstream gradient, against the exact float32 gradient
+    (`float32_sdpa` under `exact()`): within TOL_ATTN of its largest
+    magnitude, or at most TOL_ATTN further from it than the reference's own
+    arithmetic (`mxu_vjp`) is; bf16-rounded dS over thousands of keys puts
+    both several percent of the largest dq off exact. The direct
+    differences from `mxu_vjp` and from autograd through `mxu_attention`
+    are printed beside them. Sites in frozen perception (LightGlue) take no
+    gradient: forward only. -> rows with the errors and the ms of a forward
+    and backward (forward only in perception) of the library and the twin."""
+    import torch
+
+    from pf3plat_tpu_torch.models import layers
+    from pf3plat_tpu_torch.precision import exact
+
+    rows = []
+    for i, s in enumerate(sites.values()):
+        kw = dict(mask=s["mask"], bias=s["bias"], q_scale=s["q_scale"])
+        backward = not s["autocast"]
+        gen = torch.Generator(device="cuda").manual_seed(SEED + i)
+        g = torch.randn(s["q"].shape[:-1] + s["v"].shape[-1:], device="cuda", generator=gen)
+
+        def run(fn):
+            q, k, v = (s[x].clone().requires_grad_(backward) for x in ("q", "k", "v"))
+            out = fn(q, k, v, **kw)
+            if not backward:
+                return (out.detach(),)
+            return (out.detach(), *torch.autograd.grad(out, (q, k, v), g))
+
+        def rel(got, want):
+            return {name: float((a.float() - b).abs().max() / b.abs().max())
+                    for name, a, b in zip(("dq", "dk", "dv"), got, want)}
+
+        got = run(layers.library_attention)
+        bwd = None
+        with exact():
+            twin = run(layers.mxu_attention)
+            twin_ms = cuda_ms(lambda: run(layers.mxu_attention), 3, warmup=1)
+            out_err = float((got[0] - twin[0]).abs().max() / twin[0].abs().max())
+            if backward:
+                vjp = mxu_vjp(s, g)
+                exact_grads = run(float32_sdpa)[1:]
+                bwd = dict(library_vs_exact=rel(got[1:], exact_grads),
+                           reference_vs_exact=rel(vjp, exact_grads),
+                           library_vs_reference=rel(got[1:], vjp),
+                           library_vs_autograd_twin=rel(got[1:], twin[1:]))
+                del vjp, exact_grads
+        lib_ms = cuda_ms(lambda: run(layers.library_attention), 3, warmup=1)
+        ok = out_err <= TOL_ATTN and (bwd is None or all(
+            err <= TOL_ATTN + bwd["reference_vs_exact"][name]
+            for name, err in bwd["library_vs_exact"].items()))
+        rows.append(dict(site=s["site"], q=list(s["q"].shape), k=list(s["k"].shape),
+                         masked=s["mask"] is not None, bias=s["bias"] is not None,
+                         q_scale=s["q_scale"], under_perception_autocast=s["autocast"],
+                         out_dtype=str(got[0].dtype).replace("torch.", ""),
+                         out_rel_err=out_err, backward=bwd, within_gate=ok,
+                         library_ms=lib_ms, twin_ms=twin_ms))
+        del got, twin
+        torch.cuda.empty_cache()
+    return rows
+
+
+def pinned_sites(calls: dict) -> list:
+    """Part (b): each pinned product as it ran (under perception's autocast
+    or the encoder's policy) against `torch.einsum` of the same operands
+    under `exact()`, bit for bit; beside it how far the same product is from
+    exact when not pinned (autocast as it was, the declared policy)."""
+    import torch
+
+    from pf3plat_tpu_torch.precision import exact
+
+    rows = []
+    for c in calls.values():
+        with exact():
+            want = torch.einsum(c["spec"], c["a"].float(), c["b"].float())
+        with torch.autocast("cuda", dtype=torch.bfloat16, enabled=c["autocast"]):
+            free = torch.einsum(c["spec"], c["a"], c["b"])
+        rows.append(dict(site=PINNED_SPECS.get(c["spec"], c["spec"]), spec=c["spec"],
+                         a=list(c["a"].shape), b=list(c["b"].shape), autocast=c["autocast"],
+                         dtype=str(c["out"].dtype).replace("torch.", ""),
+                         bit_equal=bool(torch.equal(c["out"], want)),
+                         unpinned_max_rel=float((free.float() - want).abs().max()
+                                                / want.abs().max())))
+    return rows
+
+
+def conv_gemms(trace_dir: Path, window: str) -> dict:
+    """The device operations that `aten::cudnn_convolution` launched in a
+    traced window: ms and launches of all, of the complex-f32 GEMMs (FFT
+    convolutions: `cf32` / `cgemm` in the kernel name) and the five
+    heaviest."""
+    from pf3plat_tpu_torch.utils import profiling
+
+    rows = [r for r in profiling.device_op_breakdown(trace_dir, window=window)
+            if r["launched_by"] == "aten::cudnn_convolution"]
+    cplx = [r for r in rows if "cf32" in r["name"].lower() or "cgemm" in r["name"].lower()]
+    return dict(ms=sum(r["total_us"] for r in rows) / 1e3, launches=sum(r["count"] for r in rows),
+                complex_gemm_ms=sum(r["total_us"] for r in cplx) / 1e3,
+                complex_gemm_launches=sum(r["count"] for r in cplx),
+                top=[dict(name=r["name"][:100], ms=r["total_us"] / 1e3, count=r["count"])
+                     for r in rows[:5]])
+
+
+def float32_sdpa(q, k, v, mask=None, bias=None, q_scale=None):
+    """Attention outside the flash rule as the parent tree ran it on the
+    card outside autocast: float32 operands into SDPA."""
+    import torch.nn.functional as F
+
+    from pf3plat_tpu_torch.models import layers
+
+    if q_scale is not None:
+        q = q * q_scale
+    add = layers._additive_mask(mask, bias, q)
+    return F.scaled_dot_product_attention(q.float(), k.float(), v.float(),
+                                          attn_mask=None if add is None else add.float(),
+                                          scale=None if q_scale is None else 1.0)
+
+
+def step_spread_and_determinism() -> dict:
+    """Part (e): the training step of record (b=3, the train phase's model
+    and batch), warmed up, then twice from the same parameters and generator
+    with bf16 SDPA outside the flash rule (the port) and twice with float32
+    SDPA (the parent tree): the relative spread of the two steps' loss and
+    gradient norm for each. Then one step under
+    `torch.use_deterministic_algorithms(True, warn_only=True)`: the
+    operations torch names as nondeterministic."""
+    import gc
+    import warnings
+
+    import torch
+
+    from pf3plat_tpu_torch.models import layers
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.training.losses import LossCfg
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, init_train_state, make_model_train_step)
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(), device="cuda")
+    batch = train_batch()
+    step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg())
+    init = {k: v.clone() for k, v in model.encoder.state_dict().items()}
+
+    def step():
+        model.encoder.load_state_dict(init)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        _, aux = step_fn(init_train_state(model), batch, generator=gen)
+        return dict(loss=float(aux["loss"]), grad_norm=float(aux["grad_norm"]))
+
+    def spread(a, b):
+        return {k: abs(a[k] - b[k]) / abs(b[k]) for k in a}
+
+    step()  # warm-up
+    runs = {"bf16_sdpa": [step(), step()]}
+    library = layers.library_attention
+    layers.library_attention = float32_sdpa
+    try:
+        step()
+        runs["float32_sdpa"] = [step(), step()]
+    finally:
+        layers.library_attention = library
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    named = sorted({str(w.message).splitlines()[0][:240] for w in caught
+                    if "determinis" in str(w.message).lower()})
+    row = dict(runs=runs, spread={k: spread(*r) for k, r in runs.items()},
+               nondeterministic_ops=named)
+    del model, step_fn, batch, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def precision_phase() -> None:
+    """Phase precision. On the serving request (configs/re10k_test.yaml's
+    model, b=1, v=5, 256 x 256, random weights from the seed), under the
+    declared policy: (a) every attention outside the flash rule at its
+    shape, `library_attention` against its twin's arithmetic under
+    `exact()`, forward and backward (gate TOL_ATTN of the largest
+    magnitude); (b) every pinned product bit-equal to its `exact()` product;
+    one request with PF3PLAT_FLASH_ATTENTION=0 (no attention kernel
+    launch), one under deterministic algorithms (the operations named).
+    (c) The training step of record at b=3 with TF32 on and off: loss,
+    gradient norm, step ms and one traced step each with the convolutions'
+    device time; the declared `precision.TF32` must be what TOL_TF32_STEP
+    decides. (d) `perceive_precision`. (e) `step_spread_and_determinism`."""
+    import gc
+    import os
+    import warnings
+
+    import torch
+
+    from pf3plat_tpu_torch import precision
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
+    inputs = serving_inputs()
+
+    def request():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        with torch.no_grad():
+            enc, out = model(*inputs, 0, generator=gen)
+        if not bool(torch.isfinite(out.color).all()):
+            raise AssertionError("precision: non-finite colour")
+        return enc, out
+
+    request()  # warm-up
+    with capture_precision_sites() as seen:
+        request()
+    attn = attention_sites(seen["attention"])
+    emit(dict(phase="precision", part="a", sites=attn, tol=TOL_ATTN,
+              max_out_rel_err=max(r["out_rel_err"] for r in attn)))
+    if not all(r["within_gate"] and r["out_dtype"] == "float32" for r in attn):
+        raise AssertionError(f"precision (a): library attention outside its gate, or not "
+                             f"float32: {attn}")
+    pinned = pinned_sites(seen["pinned"])
+    missing = set(PINNED_SPECS) - {r["spec"] for r in pinned}
+    emit(dict(phase="precision", part="b", sites=pinned, missing=sorted(missing)))
+    del seen
+    if missing or not all(r["bit_equal"] and r["dtype"] == "float32" for r in pinned):
+        raise AssertionError(f"precision (b): pinned products missing {missing} or not exact "
+                             f"float32: {pinned}")
+
+    os.environ["PF3PLAT_FLASH_ATTENTION"] = "0"
+    try:
+        kernels.reset_launches()
+        request()
+        flash_off = {k: kernels.LAUNCHES[k] for k in MODEL_TRAIN_KERNELS}
+    finally:
+        del os.environ["PF3PLAT_FLASH_ATTENTION"]
+    kernels.reset_launches()
+    request()
+    flash_on = {k: kernels.LAUNCHES[k] for k in MODEL_TRAIN_KERNELS}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            request()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    serve_named = sorted({str(w.message).splitlines()[0][:240] for w in caught
+                          if "determinis" in str(w.message).lower()})
+    emit(dict(phase="precision", part="flash_switch", launches_flash_off=flash_off,
+              launches_flash_on=flash_on))
+    if any(flash_off.values()) or not flash_on["attention_fwd"]:
+        raise AssertionError(f"precision: PF3PLAT_FLASH_ATTENTION=0 launched {flash_off}; "
+                             f"without it {flash_on}")
+    del model, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    steps = {}
+    for on in (True, False):
+        name = "tf32_on" if on else "tf32_off"
+        with tf32(on):
+            row = policy_step({}, TRACE_DIR / f"precision_{name}")
+        row["convolutions"] = conv_gemms(TRACE_DIR / f"precision_{name}", "memory_policy_step")
+        steps[name] = row
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    # One step from the same parameters and generator (the warm-up step);
+    # the next step also carries the first's rounding through Adam, whose
+    # first update moves every element by +-lr whatever its gradient's size.
+    on, off = steps["tf32_on"], steps["tf32_off"]
+    moved = max(rel(on["warmup"][k], off["warmup"][k]) for k in ("loss", "grad_norm"))
+    second = max(rel(on[k], off[k]) for k in ("loss", "grad_norm"))
+    decided = moved <= TOL_TF32_STEP
+    emit(dict(phase="precision", part="c", batch=[3, 3, 256, 256], declared_tf32=precision.TF32,
+              measured_rel_diff=moved, second_step_rel_diff=second, tol=TOL_TF32_STEP,
+              tf32_allowed_by_measurement=decided,
+              steps={k: {f: r[f] for f in ("total_ms", "perceive_ms", "encoder_ms",
+                                            "backward_ms", "loss", "grad_norm", "warmup",
+                                            "max_memory_allocated_bytes", "convolutions")}
+                     for k, r in steps.items()},
+              traces={k: {f: r["trace"][f] for f in ("busy_ms", "wall_ms", "idle_share")}
+                      for k, r in steps.items()}))
+    if precision.TF32 != decided:
+        raise AssertionError(f"precision (c): TF32 moves the step by {moved} (tolerance "
+                             f"{TOL_TF32_STEP}), so the policy should be TF32="
+                             f"{decided}, but precision.TF32 is {precision.TF32}")
+
+    perceive_precision()
+    spread = step_spread_and_determinism()
+    emit(dict(phase="precision", part="e", **spread, serve_nondeterministic_ops=serve_named))
 
 
 def trace_window(log_dir: Path, window: str) -> dict:
@@ -3069,26 +3641,19 @@ def trace_child(out_path: Path) -> int:
     {window: trace_window(...)} to `out_path`."""
     import shutil
 
-    import numpy as np
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.precision import apply_policy
     from pf3plat_tpu_torch.utils import profiling
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    apply_policy(torch.device("cuda"))
     shutil.rmtree(TRACE_DIR, ignore_errors=True)
     seconds = {}
     t0 = time.perf_counter()
     torch.manual_seed(SEED)
     model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
-    rng = np.random.default_rng(SEED)
-    b, v, h, w = 1, SERVE_VIEWS, 256, 256
-    images = torch.as_tensor(rng.uniform(0, 1, (b, v, h, w, 3)).astype(np.float32), device="cuda")
-    intr = torch.as_tensor(np.broadcast_to(
-        np.array([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]), (b, v, 3, 3)).astype(np.float32),
-        device="cuda")
-    near, far = torch.ones((b, v), device="cuda"), torch.full((b, v), 100.0, device="cuda")
+    images, intr, near, far = serving_inputs()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
 
     stack = contextlib.ExitStack()
@@ -3226,16 +3791,17 @@ def procs_child(rank: int, port: str, out: Path) -> int:
     import torch
 
     from pf3plat_tpu_torch.parallel import MeshCfg, initialize_multihost, make_mesh
+    from pf3plat_tpu_torch.precision import apply_policy, exact
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    apply_policy(torch.device("cuda"))
     initialize_multihost(f"localhost:{port}", 2, rank, backend="gloo")
     result = {"rank": rank, "renders": {}}
     mesh = make_mesh(MeshCfg(data_axis=1, tile_axis=2), device="cuda")
     scene = bench_scene("cuda")
     for name, impl, config, _, _ in mesh_render_cases():
         torch.cuda.reset_peak_memory_stats()
-        img, grads, launches = render_on_mesh(scene, impl, config, mesh)
+        with exact():  # held bit for bit to the parent's render, also under exact()
+            img, grads, launches = render_on_mesh(scene, impl, config, mesh)
         torch.save({"image": img.cpu(), **{k: g.cpu() for k, g in grads.items()}},
                    out / f"{name}_{rank}.pt")
         ms = time_mesh_render(scene, impl, config, mesh)
@@ -3298,6 +3864,7 @@ def procs_mesh() -> dict:
 
     from pf3plat_tpu_torch import main as port_main
     from pf3plat_tpu_torch.parallel import Mesh, MeshCfg, make_mesh
+    from pf3plat_tpu_torch.precision import exact
     from pf3plat_tpu_torch.training import train as train_mod
     from pf3plat_tpu_torch.training.train import init_train_state
     from pf3plat_tpu_torch.utils.config import load_config
@@ -3335,9 +3902,10 @@ def procs_mesh() -> dict:
     rows = []
     for name, impl, config, per_shard, never in mesh_render_cases():
         want = {**{k: 1 for k in per_shard}, **{k: 0 for k in never}}
-        img, grads, _ = render_on_mesh(scene, impl, config, mesh)
-        ref = {"image": img.cpu(), **{k: g.cpu() for k, g in grads.items()}}
-        img2, _, _ = render_on_mesh(scene, impl, config, mesh)
+        with exact():
+            img, grads, _ = render_on_mesh(scene, impl, config, mesh)
+            ref = {"image": img.cpu(), **{k: g.cpu() for k, g in grads.items()}}
+            img2, _, _ = render_on_mesh(scene, impl, config, mesh)
         ms = time_mesh_render(scene, impl, config, mesh)
         unequal, wrong = [], []
         for r, got in enumerate(ranks):
@@ -3481,12 +4049,16 @@ def main(argv) -> int:
     if argv[:1] == ["--procs-child"]:
         return procs_child(int(argv[1]), argv[2], Path(argv[3]))
     LOG.unlink(missing_ok=True)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
+    from pf3plat_tpu_torch import precision
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
     from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels
     from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh
+    from pf3plat_tpu_torch.precision import exact
+
+    # The declared policy, as every entry point sets it: the timing phases
+    # run under it; kernel gates and parity comparisons under exact().
+    precision.apply_policy(torch.device("cuda"))
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3499,7 +4071,10 @@ def main(argv) -> int:
     regs = {k: ptxas_registers(v, "compact_kernel" if k == "compact_pairs" else "")
             for k, v in build["ptxas"].items()}
     emit(dict(phase="device", nvidia_smi=smi, torch=torch.__version__,
-              cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas))
+              cuda=torch.version.cuda, kernel_build_s=build["seconds"], ptxas=ptxas,
+              policy=dict(tf32=precision.TF32,
+                          cuda_matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+                          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)))
     emit(env_inventory())
     if "--main" in argv:
         # the training entry point alone: the train phase's launches per
@@ -3525,6 +4100,12 @@ def main(argv) -> int:
         print(smi, flush=True)
         return 0
 
+    if "--precision" in argv:
+        # the precision rules alone
+        precision_phase()
+        print(smi, flush=True)
+        return 0
+
     if "--attention-ablations" in argv:
         attention_ablations()
         print(smi, flush=True)
@@ -3541,35 +4122,37 @@ def main(argv) -> int:
     config = PRODUCTION_CONFIG
     shape = (256, 256)
     scene = bench_scene("cuda")
-    screen = project(scene, shape, config)
-    check_b1(screen, shape, config, "bench", regs)
-    check_b2(screen, shape, scene["background"], config, "bench", regs)
-    check_backward(screen, shape, scene["background"], config, "bench")
-    check_tables(screen, shape, scene["background"], config, "bench", regs)
-    check_b5(screen, shape, scene["background"], RasterizeConfig(), "bench")
-    del screen
-    b1_sweep()
-    bwd_sweep()
-    attn_pose = check_attention("pose", *ATTN_POSE_SHAPE)
-    vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], shape)
-    attn_vit = check_attention("vit", *vit_shape)
-    check_attention("depth", *ATTN_DEPTH_SHAPE)
-    serve_shapes = {(SERVE_VIEWS, *ATTN_POSE_SHAPE[1:]),
-                    vit_attention_shape(model_config(), SERVE_VIEWS, shape)}
-    for tag, attn_shape in zip(("pose_serve", "vit_serve"), sorted(serve_shapes)):
-        check_attention(tag, *attn_shape, backward=False)
-    sweep_attention()
+    with exact():
+        screen = project(scene, shape, config)
+        check_b1(screen, shape, config, "bench", regs)
+        check_b2(screen, shape, scene["background"], config, "bench", regs)
+        check_backward(screen, shape, scene["background"], config, "bench")
+        check_tables(screen, shape, scene["background"], config, "bench", regs)
+        check_b5(screen, shape, scene["background"], RasterizeConfig(), "bench")
+        del screen
+        b1_sweep()
+        bwd_sweep()
+        attn_pose = check_attention("pose", *ATTN_POSE_SHAPE)
+        vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], shape)
+        attn_vit = check_attention("vit", *vit_shape)
+        check_attention("depth", *ATTN_DEPTH_SHAPE)
+        serve_shapes = {(SERVE_VIEWS, *ATTN_POSE_SHAPE[1:]),
+                        vit_attention_shape(model_config(), SERVE_VIEWS, shape)}
+        for tag, attn_shape in zip(("pose_serve", "vit_serve"), sorted(serve_shapes)):
+            check_attention(tag, *attn_shape, backward=False)
+        sweep_attention()
 
     if "--kernels" in argv:
         return 0
 
-    for impl in ("streamed", "pallas"):
-        render_fwd_bwd(scene, config, impl)
-    # a tile whose pixel count is no multiple of 32 (idle lanes in B2, B3,
-    # B6 and B7)
-    for impl in ("streamed", "pallas"):
-        render_fwd_bwd(scene, dataclasses.replace(config, tile_size=12), impl, "tile12")
-    mesh_render(scene, make_mesh(MeshCfg(data_axis=1, tile_axis=4), device="cuda"))
+    with exact():
+        for impl in ("streamed", "pallas"):
+            render_fwd_bwd(scene, config, impl)
+        # a tile whose pixel count is no multiple of 32 (idle lanes in B2,
+        # B3, B6 and B7)
+        for impl in ("streamed", "pallas"):
+            render_fwd_bwd(scene, dataclasses.replace(config, tile_size=12), impl, "tile12")
+        mesh_render(scene, make_mesh(MeshCfg(data_axis=1, tile_axis=4), device="cuda"))
     del scene
 
     # Serving: the same request (same seeds, so the same gaussians) through
@@ -3577,17 +4160,19 @@ def main(argv) -> int:
     captured, serve_launches, image = serve("streamed", timed_shapes=serve_shapes)
     serve_per_request = {k: n // 3 for k, n in serve_launches.items()}
     torch.cuda.empty_cache()
-    scene = render_scene(captured)
-    screen = project(scene, shape, config)
-    b1 = check_b1(screen, shape, config, "serve", regs)
-    check_b2(screen, shape, scene["background"], config, "serve", regs)
-    reference_check(scene, config)
-    check_tables(screen, shape, scene["background"], config, "serve", regs, backward=False)
-    del scene, screen
-    depth_phase(captured, config)
+    with exact():
+        scene = render_scene(captured)
+        screen = project(scene, shape, config)
+        b1 = check_b1(screen, shape, config, "serve", regs)
+        check_b2(screen, shape, scene["background"], config, "serve", regs)
+        reference_check(scene, config)
+        check_tables(screen, shape, scene["background"], config, "serve", regs, backward=False)
+        del scene, screen
+        depth_phase(captured, config)
     del captured
     torch.cuda.empty_cache()
-    perceive_precision()
+    precision_phase()
+    torch.cuda.empty_cache()
     _, launches_p, image_p = serve("pallas")
     serve_launches.update({k: launches_p[k] for k in FWD_KERNELS["pallas"]})
     diff = (image - image_p).abs()
@@ -3626,15 +4211,19 @@ def main(argv) -> int:
     # The sharded step on a (data=2, tile=2) mesh of the one card: without
     # compaction (B2 and B5 once per shard) it must reproduce the unsharded
     # exact-expansion step; with the production config it takes the
-    # shard-local pipeline (B1-B4 once per shard).
+    # shard-local pipeline (B1-B4 once per shard). The two sides differ in
+    # shape, so the comparison runs under exact().
     mesh = make_mesh(MeshCfg(data_axis=2, tile_axis=2), device="cuda")
-    _, launches_m, trace_m, _ = train("streamed", 1, raster=RasterizeConfig(), mesh=mesh)
+    with exact():
+        _, launches_m, trace_m, _ = train("streamed", 1, raster=RasterizeConfig(), mesh=mesh)
+        _, _, trace_s, _ = train("streamed", 1, raster=RasterizeConfig())
+        # The unsharded step once more, for its own run-to-run spread beside
+        # the gate (information: the encoder's backward is not
+        # bit-reproducible, and Adam's first step turns that into
+        # gradient-norm differences).
+        _, _, trace_s2, _ = train("streamed", 1, raster=RasterizeConfig())
     worst = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_m, trace_s)
                 for k in ("loss", "grad_norm"))
-    # The unsharded step once more, for its own run-to-run spread beside the
-    # gate (information: the encoder's backward is not bit-reproducible, and
-    # Adam's first step turns that into gradient-norm differences).
-    _, _, trace_s2, _ = train("streamed", 1, raster=RasterizeConfig())
     rerun = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_s2, trace_s)
                 for k in ("loss", "grad_norm"))
     emit(dict(phase="train_mesh_vs_unsharded", sharded=trace_m, unsharded=trace_s,
@@ -3645,18 +4234,19 @@ def main(argv) -> int:
                              f"differ by {worst} > {TOL_TRAIN_MESH}")
     launches["composite_bwd_blocks"] = launches_m["composite_bwd_blocks"]
     train("streamed", 1, mesh=mesh)
-    scene = render_scene(captured)
-    screen = project(scene, shape, config)
-    rows = {
-        "compact_pairs": check_b1(screen, shape, config, "train", regs),
-        "composite_fwd": check_b2(screen, shape, scene["background"], config, "train", regs),
-    }
-    rows["composite_bwd"], rows["dup_reduce"] = check_backward(
-        screen, shape, scene["background"], config, "train")
-    rows["table_fwd"], rows["table_bwd"] = check_tables(
-        screen, shape, scene["background"], config, "train", regs)
-    rows["composite_bwd_blocks"] = check_b5(screen, shape, scene["background"],
-                                            RasterizeConfig(), "train")
+    with exact():
+        scene = render_scene(captured)
+        screen = project(scene, shape, config)
+        rows = {
+            "compact_pairs": check_b1(screen, shape, config, "train", regs),
+            "composite_fwd": check_b2(screen, shape, scene["background"], config, "train", regs),
+        }
+        rows["composite_bwd"], rows["dup_reduce"] = check_backward(
+            screen, shape, scene["background"], config, "train")
+        rows["table_fwd"], rows["table_bwd"] = check_tables(
+            screen, shape, scene["background"], config, "train", regs)
+        rows["composite_bwd_blocks"] = check_b5(screen, shape, scene["background"],
+                                                RasterizeConfig(), "train")
     del scene, screen, captured
     torch.cuda.empty_cache()
     train_frozen()

@@ -10,7 +10,8 @@ and pose loss, backward, Adam update) through it: the decoder's streamed
 rasterizer splits its (batch * view * tile) rows over both mesh axes, and
 the scene is large enough to engage the shard-local pipeline
 (`ops/rasterizer/shard_local.py`). Both run on the card unless
-`device="cpu"`.
+`device="cpu"`, under the declared precision policy
+(`precision.apply_policy`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from .models.gaussian_adapter import GaussianAdapterCfg
 from .models.pf3plat import PF3plat, PF3platCfg
 from .ops.rasterizer import RasterizeConfig
 from .parallel import MeshCfg, make_mesh, replicate, shard_batch, shard_train_step
+from .precision import apply_policy
 from .training.losses import LossCfg, total_loss
 
 
@@ -69,6 +71,7 @@ def entry(device=None):
     """Returns (fn, example_args): the full model's forward render."""
     h = w = 56  # a multiple of the ViT patch (14); the raster tiles (16) pad
     model = small_model(device=device)
+    apply_policy(model.device)
     args = example_inputs(1, 2, h, w)
     gen = torch.Generator(device=model.device).manual_seed(1)
 
@@ -88,6 +91,7 @@ def dryrun_multichip(n_devices: int, device=None) -> float:
     tile_axis = 2 if n_devices % 2 == 0 else 1
     b, v = n_devices, 2
     model = small_model(impl="streamed", device=device)
+    apply_policy(model.device)
     images, intr, near, far = example_inputs(b, v, h, w)
     mesh = make_mesh(MeshCfg(data_axis=n_devices // tile_axis, tile_axis=tile_axis),
                      device=model.device)

@@ -7,7 +7,8 @@ search frame pairs whose mutual ray-projection overlap falls in
 emit `{scene: {"context": [...], "target": [...], "overlap": x}}` JSON.
 The overlaps run on the card unless the caller passes `device="cpu"`; the
 numpy generator's draws are the JAX package's, so the same scenes and seed
-give the same index.
+give the same index. The CLI sets the declared precision policy
+(`precision.apply_policy`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..precision import apply_policy
 from ..geometry.epipolar import view_overlap
 
 
@@ -107,6 +109,7 @@ def main(argv=None, device=None) -> None:
     seed = int(opt("--seed", "0"))
     if not argv:
         raise SystemExit(main.__doc__)
+    apply_policy(resolve_device(device))
     root = Path(argv[0]) / stage
 
     scenes = {}

@@ -5,7 +5,8 @@ Port of `pf3plat_tpu/evaluation/metric_computer.py` (the reference's
 `src/scripts/compute_metrics.py`): given directories of rendered images
 (one per method) plus ground-truth images with matching filenames,
 recompute PSNR/SSIM/LPIPS per method and aggregate. Runs on the card
-unless the caller passes `device="cpu"`.
+unless the caller passes `device="cpu"`; the CLI sets the declared
+precision policy (`precision.apply_policy`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..precision import apply_policy
 from ..training.metrics import compute_psnr, compute_ssim
 
 
@@ -84,6 +86,7 @@ def main(argv=None, device=None) -> None:
         raise SystemExit(main.__doc__)
     gt = Path(argv[0])
     methods = dict(a.split("=", 1) for a in argv[1:])
+    apply_policy(resolve_device(device))
     results = compute_metrics(
         gt, {k: Path(v) for k, v in methods.items()}, output_path=out, device=device
     )

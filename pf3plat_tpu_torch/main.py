@@ -3,7 +3,8 @@
 Port of `pf3plat_tpu/main.py` (the reference's `src/main.py:37-155`: typed
 config, model + data pipeline, the training loop with checkpoints, periodic
 logging and validation artifacts, and the evaluation protocol). Runs on the
-card unless the caller asks otherwise (`main(argv, device="cpu")`).
+card unless the caller asks otherwise (`main(argv, device="cpu")`), under
+the declared precision policy (`precision.apply_policy`).
 
 Modes:
   mode=train   train on chunk datasets under dataset.roots
@@ -370,6 +371,8 @@ def run_test(cfg, device=None) -> None:
 
 
 def main(argv=None, device=None) -> None:
+    from .device import resolve_device
+    from .precision import apply_policy
     from .utils.config import load_config
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -377,6 +380,7 @@ def main(argv=None, device=None) -> None:
     if argv and argv[0].endswith((".yaml", ".yml")):
         yaml_path = Path(argv.pop(0))
     cfg = load_config(yaml_path, argv)
+    apply_policy(resolve_device(device))
 
     if cfg.mode == "train":
         run_train(cfg, device)

@@ -2,7 +2,10 @@
 `pf3plat_tpu/models/backbones/lightglue.py`); module tree = the released
 checkpoint's (`input_proj`, `posenc.Wr`, `transformers.i.{self,cross}_attn`,
 `log_assignment.i.{final_proj,matchability}`; only the last assignment head
-runs, early exit and pruning are off as in the JAX module)."""
+runs, early exit and pruning are off as in the JAX module). The similarity
+matrix is exact float32 (the JAX module pins it to "highest"); inside bf16
+autocast `final_proj` and `matchability` run at the JAX package's bfloat16
+rule (`precision.decision_head`)."""
 
 from __future__ import annotations
 
@@ -12,6 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ... import precision
 from ..layers import CrossBlock, LearnableFourierPositionalEncoding, SelfBlock
 from .superpoint import Keypoints
 
@@ -75,12 +79,13 @@ class LightGlue(nn.Module):
             desc1 = layer.self_attn(desc1, enc1, mask1)
             desc0, desc1 = layer.cross_attn(desc0, desc1, cross)
         head = self.log_assignment[-1]
+        rule = precision.decision_head
         desc0, desc1 = desc0.float(), desc1.float()
-        mdesc0 = head.final_proj(desc0) / d**0.25
-        mdesc1 = head.final_proj(desc1) / d**0.25
-        sim = torch.matmul(mdesc0, mdesc1.transpose(-1, -2)).float()
+        mdesc0 = rule(head.final_proj, desc0) / d**0.25
+        mdesc1 = rule(head.final_proj, desc1) / d**0.25
+        sim = precision.exact_einsum("bmd,bnd->bmn", mdesc0, mdesc1)
         scores = sigmoid_log_double_softmax(
-            sim, head.matchability(desc0).float(), head.matchability(desc1).float(), m0, m1)
+            sim, rule(head.matchability, desc0), rule(head.matchability, desc1), m0, m1)
         max0_idx = torch.argmax(scores, dim=-1)
         max1_idx = torch.argmax(scores, dim=-2)
         k0 = torch.arange(scores.shape[-2], device=scores.device)

@@ -1,6 +1,9 @@
 """SuperPoint keypoints + descriptors with fixed-K selection (port of
 `pf3plat_tpu/models/backbones/superpoint.py`); layer names are the released
-checkpoint's (conv1a..convDb)."""
+checkpoint's (conv1a..convDb). Inside bf16 autocast the detector and
+descriptor heads run at the JAX package's bfloat16 rule
+(`precision.decision_head`: bf16 operands, float32 outputs), so the NMS, the
+top-k and the threshold see float32 scores."""
 
 from __future__ import annotations
 
@@ -9,6 +12,8 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ... import precision
 
 
 class Keypoints(NamedTuple):
@@ -100,7 +105,9 @@ class SuperPoint(nn.Module):
         x = F.relu(self.conv4a(x))
         x = F.relu(self.conv4b(x))
 
-        logits = self.convPb(F.relu(self.convPa(x))).permute(0, 2, 3, 1)  # (b, hc, wc, 65)
+        rule = precision.decision_head
+        # (b, hc, wc, 65)
+        logits = rule(self.convPb, F.relu(rule(self.convPa, x))).permute(0, 2, 3, 1)
         scores = torch.softmax(logits.float(), dim=-1)[..., :-1]
         hc, wc = scores.shape[1:3]
         scores = scores.reshape(b, hc, wc, 8, 8).permute(0, 1, 3, 2, 4).reshape(b, hc * 8, wc * 8)
@@ -117,7 +124,7 @@ class SuperPoint(nn.Module):
         xy = torch.stack([xs, ys], dim=-1)
         valid = top_scores > self.detection_threshold
 
-        desc = self.convDb(F.relu(self.convDa(x))).permute(0, 2, 3, 1).float()
+        desc = rule(self.convDb, F.relu(rule(self.convDa, x))).permute(0, 2, 3, 1).float()
         desc = desc / torch.clamp(torch.linalg.norm(desc, dim=-1, keepdim=True), min=1e-12)
         descriptors = _descriptor_sample(desc, xy)
         return Keypoints(

@@ -10,6 +10,7 @@ import torch
 from torch import nn
 
 from ..geometry.projection import se3_inverse
+from ..precision import exact_einsum
 from .layers import gelu
 from .nhwc import Conv, GroupNorm, parse_dtype, resize_bilinear, resize_nearest
 from .remat import remat
@@ -202,7 +203,8 @@ class DepthPredictorMultiView(Named):
         q = self.att_q(mono).reshape(v * b, hd * wd, d)
         kk = self.att_k(mono).reshape(v * b, hd * wd, d)
         val = self.att_v(multi_ds).reshape(v * b, hd * wd, d)
-        attn = torch.softmax(torch.matmul(q, kk.transpose(1, 2)), dim=-1)
+        # exact float32, as the JAX module pins it (precision="highest")
+        attn = torch.softmax(exact_einsum("bnc,bmc->bnm", q, kk), dim=-1)
         fused = torch.matmul(attn, val).reshape(v * b, hd, wd, d)
         fused = resize_nearest(fused, (h4, w4))
         fused_cv = gelu(self.multi_res(raw_corr)) + self.gamma * fused

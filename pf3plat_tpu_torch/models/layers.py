@@ -14,16 +14,22 @@ min(n, m) >= 2048: the JAX package's rule for its TPU flash kernel,
 `layers.py:135-147`) on CUDA tensors runs the hand-written kernels
 `csrc/attention_fwd.cu` / `csrc/attention_bwd.cu` through `FlashAttention`;
 every other attention on the card goes to
-`F.scaled_dot_product_attention`. On the CPU `attention` runs a twin of the
-JAX package's `mxu_einsum` (`layers.py:60-66,148-153`): inputs rounded to
-bf16, products accumulated in f32, softmax in f32, weights rounded to bf16
-before the second product, exactly as the JAX reference computes on every
-backend but the TPU. `attention_fwd_plain` / `attention_bwd_plain` are the
-kernels' plain versions (the CPU path of `FlashAttention`, and what the
-kernels are held against on the card).
+`F.scaled_dot_product_attention` with bf16 operands (`library_attention`).
+On the CPU `attention` runs `mxu_attention`, a twin of the JAX package's
+`mxu_einsum` (`layers.py:60-66,148-153`): inputs rounded to bf16, products
+accumulated in f32, softmax in f32, weights rounded to bf16 before the
+second product, exactly as the JAX reference computes on every backend but
+the TPU. `PF3PLAT_FLASH_ATTENTION=0` keeps every attention off the kernels,
+as it does in the JAX package. `attention_fwd_plain` /
+`attention_bwd_plain` are the kernels' plain versions (the CPU path of
+`FlashAttention`, and what the kernels are held against on the card). The
+linear attention's two pinned products run in exact float32
+(`precision.exact_einsum`).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -31,6 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.rasterizer import kernels
+from ..precision import bf16_round as _bf16
+from ..precision import exact_einsum
 
 LN_EPS = 1e-6
 # Attention goes to the hand-written kernels from this many tokens on the
@@ -47,10 +55,6 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 
 def layer_norm(dim: int) -> nn.LayerNorm:
     return nn.LayerNorm(dim, eps=LN_EPS)
-
-
-def _bf16(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.bfloat16).to(torch.float32)
 
 
 def mxu_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -236,24 +240,59 @@ class FlashAttention(torch.autograd.Function):
 def use_flash_attention(q, k, mask=None, bias=None) -> bool:
     """The JAX package's dispatch rule with the card in the TPU's place:
     CUDA tensors, no mask, no bias, 4-D, at least 2048 tokens on the shorter
-    side."""
-    return (q.device.type == "cuda" and mask is None and bias is None and q.dim() == 4
+    side, and `PF3PLAT_FLASH_ATTENTION` not "0"."""
+    return (os.environ.get("PF3PLAT_FLASH_ATTENTION", "1") != "0"
+            and q.device.type == "cuda" and mask is None and bias is None and q.dim() == 4
             and min(q.shape[-2], k.shape[-2]) >= _FLASH_MIN_TOKENS)
 
 
-def library_attention(q, k, v, mask=None, bias=None) -> torch.Tensor:
-    """`F.scaled_dot_product_attention` with the JAX code's masking (masked
-    logits at -1e30, `bias` added): every attention on the card that the JAX
-    package computes outside its TPU flash kernel."""
+def _additive_mask(mask, bias, like):
+    """The JAX code's masking as one additive term: masked logits at -1e30,
+    `bias` added; None without either."""
     add = bias
     if mask is not None:
-        neg = torch.zeros(mask.shape, dtype=q.dtype, device=q.device)
+        neg = torch.zeros(mask.shape, dtype=like.dtype, device=like.device)
         neg.masked_fill_(~mask, -1e30)
         add = neg if add is None else add + neg
-    q, k, v = common_dtype(q, k, v)
-    if add is not None:
-        add = add.to(q.dtype)
-    return F.scaled_dot_product_attention(q, k, v, attn_mask=add)
+    return add
+
+
+def library_attention(q, k, v, mask=None, bias=None, q_scale=None) -> torch.Tensor:
+    """`F.scaled_dot_product_attention` at the JAX call site's `mxu_einsum`
+    arithmetic: every attention on the card that the JAX package computes
+    outside its TPU flash kernel. q * `q_scale` (q itself when None), k and
+    v go in as bf16; the logits are taken unscaled after a `q_scale` (the
+    prescaled sites: `scaled_dot_attention`, the U-Net's cross-view
+    attention, CrossBlock), else scaled by 1/sqrt(d) in the product (the
+    swin windows). Masked logits at -1e30 and `bias` are added in bf16. The
+    result is float32, or the autocast dtype inside autocast."""
+    bf = torch.bfloat16
+    if q_scale is not None:
+        q = q * q_scale
+    q, k, v = (x.to(bf) for x in (q, k, v))
+    add = _additive_mask(mask, bias, q)
+    out = F.scaled_dot_product_attention(q, k, v, attn_mask=None if add is None else add.to(bf),
+                                         scale=None if q_scale is None else 1.0)
+    dev = out.device.type
+    return out if torch.is_autocast_enabled(dev) else out.float()
+
+
+def mxu_attention(q, k, v, mask=None, bias=None, q_scale=None) -> torch.Tensor:
+    """The JAX package's `mxu_einsum` attention, `library_attention`'s
+    function written out: bf16(q * q_scale) bf16(k)^T in f32 (or
+    bf16(q) bf16(k)^T / sqrt(d) when `q_scale` is None), masked at -1e30,
+    `bias` added, softmax in f32, the weights rounded to bf16 for the
+    product with bf16(v). The CPU path of `attention`."""
+    if q_scale is not None:
+        sim = mxu_matmul(q * q_scale, k.transpose(-1, -2))
+    else:
+        sim = mxu_matmul(q, k.transpose(-1, -2)) / q.shape[-1]**0.5
+    if mask is not None:
+        sim = torch.where(mask, sim, torch.full_like(sim, -1e30))
+    if bias is not None:
+        sim = sim + bias
+    attn = torch.softmax(sim.float(), dim=-1)
+    return mxu_matmul(attn, v)
 
 
 def attention(
@@ -271,23 +310,12 @@ def attention(
     site applies 1/sqrt(d): to q before the bf16 product (True, as
     `scaled_dot_attention`) or to the product (False, as the swin windows).
     """
-    d = q.shape[-1]
-    scale = d**-0.5
     if use_flash_attention(q, k, mask, bias):
         q, k, v = common_dtype(q, k, v)
         return FlashAttention.apply(q, k, v)
-    if q.device.type == "cuda":
-        return library_attention(q, k, v, mask=mask, bias=bias)
-    if prescale:
-        sim = mxu_matmul(q * scale, k.transpose(-1, -2))
-    else:
-        sim = mxu_matmul(q, k.transpose(-1, -2)) / d**0.5
-    if mask is not None:
-        sim = torch.where(mask, sim, torch.full_like(sim, -1e30))
-    if bias is not None:
-        sim = sim + bias
-    attn = torch.softmax(sim.float(), dim=-1)
-    return mxu_matmul(attn, v)
+    q_scale = q.shape[-1]**-0.5 if prescale else None
+    fn = library_attention if q.device.type == "cuda" else mxu_attention
+    return fn(q, k, v, mask=mask, bias=bias, q_scale=q_scale)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
@@ -368,17 +396,18 @@ class CrossBlock(nn.Module):
 
         qk0, qk1 = split(self.to_qk(x0)), split(self.to_qk(x1))
         v0, v1 = split(self.to_v(x0)), split(self.to_v(x1))
+        r = (head**-0.5)**0.5  # the JAX block's scale**0.5
         if x0.device.type == "cuda":
-            # SDPA's 1/sqrt(head) equals the JAX (qk0 s^.5)(qk1 s^.5) scaling.
-            # The JAX block forms its logits outside any TPU kernel (they
-            # serve both directions), so this stays the library's attention
-            # at every length.
-            m0 = library_attention(qk0, qk1, v1, mask=mask)
+            # The JAX block rounds (qk0 s^.5) and (qk1 s^.5) to bf16 and forms
+            # its logits outside any TPU kernel (they serve both directions),
+            # so this stays the library's attention at every length.
+            qk0, qk1 = qk0 * r, qk1 * r
+            m0 = library_attention(qk0, qk1, v1, mask=mask, q_scale=1.0)
             m1 = library_attention(qk1, qk0, v0, mask=None if mask is None
-                                   else mask.transpose(-1, -2)) if update_x1 else None
+                                   else mask.transpose(-1, -2), q_scale=1.0) \
+                if update_x1 else None
         else:
-            s = head**-0.5
-            sim = mxu_matmul(qk0 * s**0.5, (qk1 * s**0.5).transpose(-1, -2))
+            sim = mxu_matmul(qk0 * r, (qk1 * r).transpose(-1, -2))
             if mask is not None:
                 sim = torch.where(mask, sim, torch.full_like(sim, -1e30))
             m0 = mxu_matmul(torch.softmax(sim, dim=-1), v1)
@@ -434,8 +463,9 @@ class LoFTREncoderLayer(nn.Module):
         q = elu_feature_map(q)
         k = elu_feature_map(k)
         v_len = v.shape[-3]
-        kv = torch.einsum("...shd,...shv->...hdv", k, v / v_len)
-        z = 1.0 / (torch.einsum("...lhd,...hd->...lh", q, k.sum(dim=-3)) + 1e-6)
+        # exact float32, as the JAX layer pins them (precision="highest")
+        kv = exact_einsum("...shd,...shv->...hdv", k, v / v_len)
+        z = 1.0 / (exact_einsum("...lhd,...hd->...lh", q, k.sum(dim=-3)) + 1e-6)
         message = torch.einsum("...lhd,...hdv,...lh->...lhv", q, kv, z) * v_len
         message = self.LayerNorm_0(self.Dense_3(message.flatten(-2)))
         y = self.Dense_5(F.relu(self.Dense_4(torch.cat([x, message], dim=-1))))
