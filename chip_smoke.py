@@ -17,6 +17,10 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py --procs    # build, then phase procs_mesh only
     python3 chip_smoke.py --memory   # build, then phase memory_policy only
     python3 chip_smoke.py --precision  # build, then phase precision only
+    python3 chip_smoke.py --pose     # build, then phases pose_path and
+                                     # index_pairs only
+    python3 chip_smoke.py --mesh-spread  # build, then the sharded and
+                                     # unsharded steps' run-to-run spread
 
 The port's declared precision policy (`precision.apply_policy`, as every
 entry point sets it) holds for the whole run: the timing phases run under
@@ -126,8 +130,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                the `pallas` step must match; `train_mesh`: the same step
                through a (data=2, tile=2) mesh of the one card, once without
                compaction (B2 and B5 four times a step; loss and gradient
-               norm against the unsharded step, which then runs once more
-               for its own spread) and once with the production
+               norm against the unsharded step: step 1 from the same
+               parameters with its gradients, step 2 from the unsharded
+               step 1's state; the unsharded step then runs once more, two
+               steps in turn, for its own spread) and once with the production
                config (shard-local: B1-B4 four times a step); then b1..b7 on
                the warm-up step's own render inputs (9 cameras of 131,072
                gaussians);
@@ -136,6 +142,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
                after a warm-up, B1-B4 once, loss and gradient norm equal to
                `make_model_train_step`'s from the same parameters and
                generator (1e-4 relative);
+     pose_path - the pose path with real correspondences at full width
+               (configs/re10k.yaml's model, 512 matches a pair, 128
+               hypotheses, 256 x 256) on a scene of exact matches
+               (tests/torch_pose_scene.py: a non-planar surface, cameras
+               that turn and move; perception's depth and matches replaced
+               by the scene's, its features its own; the pose head's last
+               layer random), on the serving request (b=1, v=5, 10 pairs,
+               through `PF3plat.forward`) and the train batch (b=3, v=3):
+               (a) under exact(), each stage on the card against the port
+               on the CPU from the card's own inputs: RANSAC's winning
+               hypothesis equal and fits within TOL_POSE_STAGE (near-ties
+               printed), sync and so3_project within TOL_POSE_STAGE,
+               pose_loss and its gradients within TOL_POSE_LOSS, the
+               evaluator's pose errors; (b) the encoder under the declared
+               policy against exact(): poses within TOL_POSE_POLICY, each
+               stage alone under the policy printed; (c) the coarse and
+               synchronised poses' errors against the scene's truth, the
+               card's no worse than the CPU's on the same points; (d)
+               `make_train_step` with the pose term live: pose loss > 0,
+               finite gradient norms, the pose term's own gradient norm, B1-B4
+               once and attention as `attention_per_step` without the ViT,
+               ms beside a zero-match step and train_frozen's; (e) host
+               syncs of the serving encoder and of the pose loss under
+               torch.cuda.set_sync_debug_mode("warn"), by line;
      memory_policy - the encoder's memory and precision knobs: (a) the
                train phase's step at b=3 under remat off, selective and
                coarse (a warm-up, then one timed step each: ms, stage split,
@@ -177,7 +207,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
                checkpoints, through an evaluation index in the released
                schema (context [i, i + 45], 3 targets, one null key), with
                depth panels and 30-frame videos; the index generator's CLI
-               first on each root. Gates: the restore line; 8 finite scores;
+               first on each root, then `index_pairs`: the CLI over the
+               orbit chunks (cameras that turn, some view pairs overlapping
+               inside [0.6, 0.8]) on the card and on the CPU, the two
+               indexes equal. Gates: the restore line; 8 finite scores;
                benchmark.json's count 8 - 5; torch.cuda memory numbers;
                every artifact; request 0's PSNR equal to a direct forward on
                its batch and generator (1e-5 relative); launches per request
@@ -251,7 +284,13 @@ TOL_TRAIN_BACKENDS = 1e-2
 TOL_SHARD_LOCAL_IMG = TOL_BACKENDS
 TOL_SHARD_LOCAL_GRAD = 1e-2
 # Loss and gradient norm of the B5-path sharded training step against the
-# unsharded step without compaction (the same pairs in the same chunks).
+# unsharded step without compaction (the same pairs in the same chunks), and
+# the step's gradients (Adam's first moment) relative to their largest: step
+# 1 from the same initial parameters, step 2 from the unsharded step 1's
+# state. Two steps in turn are not compared: Adam's first update is +-lr
+# whatever the gradient's size, and the encoder's backward is not
+# bit-reproducible, so two unsharded runs of two steps in turn differ by
+# ~1e-4 in the second step's gradient norm (`--mesh-spread`).
 TOL_TRAIN_MESH = 1e-4
 # kernels the model's own layers launch per request / per training step
 MODEL_FWD_KERNELS = ("attention_fwd",)
@@ -1905,6 +1944,42 @@ def train_batch():
                 target=dict(image=images))
 
 
+def snapshot(state, gen) -> dict:
+    """A copy of a train state and of its generator's state, on the host (the
+    next step updates the parameters in place; the copy stays out of the
+    card's peak memory)."""
+    host = lambda ts: [t.detach().to("cpu", copy=True) for t in ts]  # noqa: E731
+    opt = state.opt_state
+    return dict(params=host(state.params),
+                opt_state=opt._replace(mu=host(opt.mu), nu=host(opt.nu)),
+                step=state.step, gen=gen.get_state())
+
+
+def restore(state, gen, snap: dict):
+    """`state` at `snap`: its parameters copied in, the snapshot's moments
+    and step; `gen` at the snapshot's generator state."""
+    import torch
+
+    from pf3plat_tpu_torch.training.train import TrainState
+
+    if [p.shape for p in state.params] != [p.shape for p in snap["params"]]:
+        raise AssertionError("restore: the snapshot is of other parameters")
+    with torch.no_grad():
+        for p, q in zip(state.params, snap["params"]):
+            p.copy_(q)
+    gen.set_state(snap["gen"])
+    opt = snap["opt_state"]
+    dev = lambda ts: [t.to(p.device) for t, p in zip(ts, state.params)]  # noqa: E731
+    return TrainState(state.params, opt._replace(mu=dev(opt.mu), nu=dev(opt.nu)), snap["step"])
+
+
+def first_moment_rel(a: dict, b: dict) -> float:
+    """The largest difference of two snapshots' first moments (after one
+    step: the clipped gradients times 1 - b1), relative to b's largest."""
+    diff = max(float((x - y).abs().max()) for x, y in zip(a["opt_state"].mu, b["opt_state"].mu))
+    return diff / max(float(y.abs().max()) for y in b["opt_state"].mu)
+
+
 class StageTimer:
     """A train step's `timer` callback: a CUDA event at the end of each
     stage, and the peak device memory of each stage (the allocator's host
@@ -1942,13 +2017,17 @@ class StageTimer:
         return {k: v for k, v in self.peaks.items() if k != "start"}
 
 
-def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
+def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None,
+          shared: dict | None = None):
     """The training step of record on the card through
     `DecoderCfg(impl=impl)` (production rasterizer config unless `raster` is
     given; through `mesh` if given, phase `train_mesh`): a warm-up step (its
     render inputs are kept for the kernel checks), then `n_steps` timed
     steps -> (captured render inputs, launches, the warm-up's and the steps'
-    losses and gradient norms, the attention shapes seen)."""
+    losses and gradient norms, the attention shapes seen). With `shared`:
+    the first call puts its state after the warm-up there (`step1`); a later
+    call records its own warm-up's first moment against it
+    (`first_moment_rel`) and takes the timed steps from that state."""
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
@@ -1982,6 +2061,12 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None):
 
     with capture_decode() as captured, capture_attention() as attn_shapes:
         state, warm_aux = step_fn(state, batch, generator=gen)  # warm-up
+    if shared is not None:
+        if "step1" not in shared:
+            shared["step1"] = snapshot(state, gen)
+        else:
+            shared["first_moment_rel"] = first_moment_rel(snapshot(state, gen), shared["step1"])
+            state = restore(state, gen, shared["step1"])
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
@@ -2035,6 +2120,96 @@ def render_scene(captured):
                 near=captured["near"].reshape(b * v), means=rep(g.means),
                 covariances=rep(g.covariances), sh=rep(g.harmonics), opacities=rep(g.opacities),
                 background=torch.zeros((b * v, 3), device="cuda"))
+
+
+def mesh_spread(repeats: int = 8) -> dict:
+    """The exact-expansion train step through the (2, 2) mesh (the B5 path)
+    and unsharded, under exact(), `repeats` times each from the same initial
+    parameters: two steps in turn (step 1's gradients against the first
+    run's, step 2's gradient norm, and the parameter tensors whose step-2
+    gradients moved most), then step 2 again from one shared step-1 state.
+    Prints the rows and the spreads; gates nothing (`--mesh-spread`)."""
+    import torch
+
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig
+    from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh, shard_batch, shard_train_step
+    from pf3plat_tpu_torch.precision import exact
+    from pf3plat_tpu_torch.training.losses import LossCfg
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, init_train_state, make_model_train_step)
+
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config("streamed", RasterizeConfig()), device="cuda")
+    names = [n for n, _ in model.encoder.named_parameters()]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init = snapshot(init_train_state(model), gen)
+    mesh = make_mesh(MeshCfg(data_axis=2, tile_axis=2), device="cuda")
+    batch = train_batch()
+    sides = {
+        "unsharded": (make_model_train_step(model, LossCfg(), OptimizerCfg()), batch),
+        "sharded": (shard_train_step(make_model_train_step(model, LossCfg(), OptimizerCfg(),
+                                                           mesh=mesh), mesh),
+                    shard_batch(mesh, batch)),
+    }
+
+    def grads(state):
+        return [torch.zeros_like(p) if p.grad is None else p.grad.clone() for p in state.params]
+
+    def worst_tensors(a, b):
+        """The parameter tensors whose gradients differ most between a and b."""
+        out = sorted((float((x - y).norm()), n, float(y.norm())) for n, x, y in zip(names, a, b))
+        return [dict(name=n, diff_norm=d, norm=s) for d, n, s in out[-3:][::-1]]
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    rows, common, ref, shared = [], [], None, None
+    with exact():
+        for r in range(repeats):
+            for side, (step, b) in sides.items():
+                state, a1 = step(restore(init_train_state(model), gen, init), b, generator=gen)
+                snap1 = snapshot(state, gen)
+                state, a2 = step(state, b, generator=gen)
+                g2 = grads(state)
+                row = dict(side=side, repeat=r, loss=[float(a1["loss"]), float(a2["loss"])],
+                           grad_norm=[float(a1["grad_norm"]), float(a2["grad_norm"])])
+                if ref is None:
+                    ref, shared = dict(step1=snap1, g2=g2, row=row), snap1
+                else:
+                    row.update(first_moment_rel=first_moment_rel(snap1, ref["step1"]),
+                               step2_grad_norm_rel=rel(row["grad_norm"][1],
+                                                       ref["row"]["grad_norm"][1]),
+                               step2_worst_tensors=worst_tensors(g2, ref["g2"]))
+                rows.append(row)
+                emit(dict(phase="mesh_spread", part="in_turn", **row))
+                del snap1, g2
+        for r in range(max(2, repeats // 2)):
+            for side, (step, b) in sides.items():
+                _, a2 = step(restore(init_train_state(model), gen, shared), b, generator=gen)
+                row = dict(side=side, repeat=r, loss=float(a2["loss"]),
+                           grad_norm=float(a2["grad_norm"]))
+                common.append(row)
+                emit(dict(phase="mesh_spread", part="shared_state", **row))
+
+    def spread(xs, key, i=None):
+        vals = [x[key] if i is None else x[key][i] for x in xs]
+        return (max(vals) - min(vals)) / abs(vals[0])
+
+    summary = {side: dict(step1_grad_norm_rel_spread=spread(mine, "grad_norm", 0),
+                          step2_grad_norm_rel_spread=spread(mine, "grad_norm", 1),
+                          step2_loss_rel_spread=spread(mine, "loss", 1),
+                          shared_state_grad_norm_rel_spread=spread(
+                              [x for x in common if x["side"] == side], "grad_norm"))
+               for side in sides for mine in [[x for x in rows if x["side"] == side]]}
+    summary.update(
+        in_turn_step2_grad_norm_rel_spread=spread(rows, "grad_norm", 1),
+        shared_state_grad_norm_rel_spread=spread(common, "grad_norm"),
+        first_moment_max_rel=max(x["first_moment_rel"] for x in rows[1:]))
+    emit(dict(phase="mesh_spread", part="summary", repeats=repeats, **summary))
+    del model, sides, ref, shared
+    torch.cuda.empty_cache()
+    return summary
 
 
 def reference_check(scene, config):
@@ -2192,7 +2367,8 @@ def write_main_data(root: Path, scenes: int = 2, splits=("train", "test")) -> li
     with camera rows to match (normalised fx 0.86, fy 1.53, the camera
     moving 0.02 a frame along x). The training scenes are drawn first (keys
     `<root>_<chunk>_<scene>`), then the test scenes (keys
-    `test_<root>_<chunk>_<scene>`)."""
+    `test_<root>_<chunk>_<scene>`). With the test split, also the orbit
+    root beside them (`write_orbit_data`), not among the returned roots."""
     import io
     import shutil
 
@@ -2241,7 +2417,85 @@ def write_main_data(root: Path, scenes: int = 2, splits=("train", "test")) -> li
                                  "images": [torch.frombuffer(bytearray(b), dtype=torch.uint8)
                                             for b in sc["images"]]} for sc in chunk],
                                r / split / f"{c:06}.torch")
+    if "test" in splits:
+        write_orbit_data(root / "orbit")
     return roots
+
+
+ORBIT_DATA = MAIN_DATA / "orbit"
+# degrees the orbit scenes' camera turns a frame (about y)
+ORBIT_YAW_DEG = 0.5
+INDEX_PAIRS = REPO / "build" / "index_pairs"
+
+
+def write_orbit_data(root: Path) -> Path:
+    """A dataset root of test chunks for the index generator's pair search:
+    `.pfchunk` files, 2 chunks x 2 scenes x 80 frames of small JPEGs, from
+    numpy seed SEED, the camera turning ~ORBIT_YAW_DEG a frame about y while
+    it moves 0.02 a frame along x (main_data's intrinsics, a ~60 degree
+    field of view). Views 40 or more frames apart then overlap inside the
+    generator's [0.6, 0.8]; main_data's chunks, which only translate, keep
+    every overlap >= 0.875."""
+    import io
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    from pf3plat_tpu_torch.native import write_pfchunk
+
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "test").mkdir(parents=True)
+    rng = np.random.default_rng(SEED)
+    buf = io.BytesIO()
+    Image.fromarray(rng.uniform(0, 255, (36, 64, 3)).astype(np.uint8)).save(buf, format="JPEG")
+    for c in range(2):
+        chunk = []
+        for s in range(2):
+            yaw = np.deg2rad(ORBIT_YAW_DEG * rng.uniform(0.8, 1.2))
+            cams = np.zeros((MAIN_FRAMES, 18), np.float32)
+            cams[:, :4] = [0.86, 1.53, 0.5, 0.5]
+            for f in range(MAIN_FRAMES):
+                c2w = np.eye(4)
+                a = yaw * f
+                c2w[:3, :3] = [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]]
+                c2w[0, 3] = 0.02 * f
+                cams[f, 6:] = np.linalg.inv(c2w)[:3].reshape(-1)
+            chunk.append({"key": f"orbit_{c}_{s}", "cameras": cams,
+                          "images": [buf.getvalue()] * MAIN_FRAMES})
+        write_pfchunk(root / "test" / f"{c:06}.pfchunk", chunk)
+    return root
+
+
+def index_pairs() -> dict:
+    """The index generator's CLI (`evaluation/index_generator.py`) over the
+    orbit chunks on the card and with device="cpu": the two JSON files must
+    be equal, and some scene must find a pair inside [0.6, 0.8]
+    (tests/test_torch_eval.py holds the CPU run against JAX)."""
+    from pf3plat_tpu_torch.evaluation import index_generator
+
+    if not (ORBIT_DATA / "test").is_dir():
+        write_orbit_data(ORBIT_DATA)
+    INDEX_PAIRS.mkdir(parents=True, exist_ok=True)
+    got, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        path = INDEX_PAIRS / f"index_{dev}.json"
+        t0 = time.perf_counter()
+        index_generator.main([str(ORBIT_DATA), "--out", str(path)],
+                             device=None if dev == "cuda" else "cpu")
+        secs[dev] = time.perf_counter() - t0
+        got[dev] = json.loads(path.read_text())
+    valid = {k: x for k, x in got["cuda"].items() if x is not None}
+    overlaps = sorted(x["overlap"] for x in valid.values())
+    emit(dict(phase="index_pairs", scenes=len(got["cuda"]), valid=len(valid), overlaps=overlaps,
+              card_equals_cpu=got["cuda"] == got["cpu"], s=secs,
+              cpu_differs={k: [got["cuda"][k], got["cpu"][k]] for k in got["cuda"]
+                           if got["cuda"][k] != got["cpu"].get(k)}))
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError("index_pairs: the card's index differs from the CPU's")
+    if not valid or not all(0.6 <= x <= 0.8 for x in overlaps):
+        raise AssertionError(f"index_pairs: overlaps {overlaps} (want some, inside [0.6, 0.8])")
+    return got["cuda"]
 
 
 def main_argv(roots, max_steps: int, ckpt: Path, out: Path, *extra) -> list[str]:
@@ -2577,6 +2831,8 @@ def main_test(serve_per_request: dict | None) -> dict:
         gen = json.loads(out_json.read_text())
         generated[r.name] = dict(valid=sum(v is not None for v in gen.values()), total=len(gen),
                                  s=time.perf_counter() - t0)
+    # the generator's pair search where overlaps fall inside its range
+    index_pairs()
     keys = sorted(f"test_{r.name}_{c}_{s}" for r in roots for c in range(2) for s in range(2))
     index = {}
     for k, key in enumerate(keys):
@@ -2672,14 +2928,15 @@ def main_test(serve_per_request: dict | None) -> dict:
     return want
 
 
-def train_frozen() -> dict:
+def train_frozen() -> float:
     """`make_train_step` (the step on precomputed frozen inputs) at full
     width: the training step of record's batch (b=3, v=3, 256 x 256,
     configs/re10k.yaml's model, random weights from the seed), frozen inputs
     from `model.perceive`; a warm-up step, then one timed step from the
     initial parameters, whose loss and gradient norm must equal
     `make_model_train_step`'s step from the same parameters, batch and
-    generator to TOL_TRAIN_FROZEN. B1-B4 launch once in the step."""
+    generator to TOL_TRAIN_FROZEN. B1-B4 launch once in the step. Returns
+    the step's ms (random weights keep no match: the pose term is 0)."""
     import numpy as np
     import torch
 
@@ -2755,7 +3012,498 @@ def train_frozen() -> dict:
                              f"make_model_train_step {want}: {rel} > {TOL_TRAIN_FROZEN}")
     del model, state, batch, frozen, corr
     torch.cuda.empty_cache()
-    return launches
+    return ms
+
+
+# Phase pose_path: the encoder's pose path on a scene with exact matches
+# (tests/torch_pose_scene.py), in place of LightGlue's matches, of which
+# random weights keep none.
+POSE_SCENE = REPO / "tests" / "torch_pose_scene.py"
+POSE_IMAGE = (256, 256)
+POSE_TRACES = REPO / "build" / "traces" / "pose_path"
+# The card against the port on the CPU under exact(), on the card's own
+# inputs to each stage: the RANSAC fits' rotations and translations, the
+# synchronised poses and so3_project, absolute.
+TOL_POSE_STAGE = 1e-4
+# pose_loss's value (relative) and its gradients with respect to the refined
+# poses, the points and the depths (relative to each one's largest entry).
+TOL_POSE_LOSS = 1e-4
+# The card's poses under the declared policy against exact() on the card:
+# the CPU tests' pose tolerance (tests/test_torch_model.py).
+TOL_POSE_POLICY = 2e-3
+# The card's recovery of the scene's motion (rotation and translation
+# direction, degrees) may exceed the CPU's on the same inputs by this much.
+TOL_POSE_RECOVERY_DEG = 1e-2
+# The evaluator's pose errors (degrees) of the card against the CPU on the
+# same refined poses.
+TOL_POSE_EVAL_DEG = 1e-2
+# Inlier sums of the two best hypotheses this close (relative) are printed
+# as a near-tie: there the argmax may follow the summation order.
+POSE_NEAR_TIE = 1e-4
+# std of the random weights in the pose head's zero-initialised last layer
+# (as tests/test_torch_pose_path.py): the refinement moves the poses.
+POSE_HEAD_STD = 1e-2
+
+
+def load_pose_scene():
+    """The shared scene module, tests/torch_pose_scene.py (numpy only)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_pose_scene", POSE_SCENE)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def pose_inputs(model, b: int, v: int, seed: int):
+    """The scene of b rows of v views at POSE_IMAGE with the model's 512
+    matches a pair, on the card: (numpy scene, (images, intrinsics, near,
+    far), FrozenInputs with the scene's depth and the features perception
+    computes from its images, Correspondences, RANSAC noise drawn with numpy
+    from `seed`)."""
+    import torch
+
+    from pf3plat_tpu_torch.models.encoder import Correspondences, FrozenInputs
+
+    cfg = model.cfg
+    scene = load_pose_scene().pose_scene(b, v, *POSE_IMAGE, cfg.max_matches, seed=seed,
+                                         ransac_samples=cfg.encoder.ransac_samples)
+
+    def cuda(k):
+        return torch.as_tensor(scene[k], device="cuda")
+
+    inputs = tuple(cuda(k) for k in ("images", "intrinsics", "near", "far"))
+    perceived, _ = model.perceive(*inputs[:2])
+    frozen = FrozenInputs(cuda("depth"), perceived.features)
+    corr = Correspondences(*(cuda(k) for k in ("kpts0", "kpts1", "scores", "valid")))
+    return scene, inputs, frozen, corr, cuda("ransac_noise")
+
+
+def to_cpu(enc):
+    """An EncoderOutput's pose-path fields on the CPU (no gaussians)."""
+    from pf3plat_tpu_torch.models.encoder import Correspondences
+
+    fields = ("pairwise_poses", "sync_poses", "refined_poses", "depths", "xyz",
+              "pair_confidences")
+    return enc._replace(gaussians=None, correspondences=Correspondences(
+        *(x.detach().cpu() for x in enc.correspondences)),
+        **{f: getattr(enc, f).detach().cpu() for f in fields})
+
+
+def max_diff(a, b) -> float:
+    return float((a.detach().cpu().double() - b.detach().cpu().double()).abs().max())
+
+
+def pose_stages(tag: str, model, scene, inputs, frozen, corr, noise):
+    """(a) The pose stages on the card against the port on the CPU under
+    exact(), each on the card's own inputs: per pair the RANSAC inputs,
+    inlier sums (winning hypothesis, near-ties) and fit; the sync and
+    so3_project; pose_loss and its gradients; the evaluator's pose errors.
+    Returns (the report, the encoder's output under exact(), the card's
+    pose-loss gradients, the failed gates)."""
+    import torch
+
+    from pf3plat_tpu_torch.geometry import camera_sync, procrustes
+    from pf3plat_tpu_torch.geometry.transforms import make_rt, so3_project
+    from pf3plat_tpu_torch.models import encoder as E
+    from pf3plat_tpu_torch.precision import exact
+    from pf3plat_tpu_torch.training.losses import pose_loss
+    from pf3plat_tpu_torch.training.metrics import pose_errors
+
+    cfg = model.cfg.encoder
+    v = inputs[0].shape[1]
+    pair_i, pair_j = E.view_pairs(v)
+    failed = []
+    cpu = lambda x: x.detach().cpu()  # noqa: E731
+    with exact(), torch.no_grad():
+        enc = model.encoder(*inputs, frozen, corr, 0, ransac_noise=noise)
+        pairs = []
+        for p, (i, j) in enumerate(zip(pair_i, pair_j)):
+            card_in = E.ransac_inputs(cfg, enc.xyz, corr, p, i, j)
+            cpu_in = [cpu(x) for x in card_in]
+            sums = {}
+            fits = {}
+            for side, (x_i, x_j, wts, thr), nz in (("card", card_in, noise[:, p]),
+                                                   ("cpu", cpu_in, cpu(noise[:, p]))):
+                sums[side] = cpu(procrustes.ransac_inliers(x_i, x_j, wts, nz,
+                                                           threshold=thr).sum(-1))
+                fits[side] = procrustes.align_ransac(x_i, x_j, wts, nz, threshold=thr)
+            top2 = torch.topk(sums["cpu"], 2, dim=-1).values
+            gap = (top2[:, 0] - top2[:, 1]) / top2[:, 0]
+            row = dict(pair=[i, j], best_card=sums["card"].argmax(-1).tolist(),
+                       best_cpu=sums["cpu"].argmax(-1).tolist(),
+                       thr_diff=max_diff(card_in[3], cpu_in[3]),
+                       inlier_sum_diff=max_diff(sums["card"], sums["cpu"]),
+                       r_diff=max_diff(fits["card"].r, fits["cpu"].r),
+                       t_diff=max_diff(fits["card"].t, fits["cpu"].t),
+                       encoder_diff=max_diff(make_rt(fits["card"].r, fits["card"].t),
+                                             enc.pairwise_poses[:, p]),
+                       best_gap=gap.tolist())
+            if (gap < POSE_NEAR_TIE).any():
+                row["near_tie"] = True
+            pairs.append(row)
+            if row["best_card"] != row["best_cpu"]:
+                failed.append(f"{tag} pair {(i, j)}: winning hypothesis {row['best_card']} on "
+                              f"the card, {row['best_cpu']} on the CPU")
+            if max(row["r_diff"], row["t_diff"]) > TOL_POSE_STAGE:
+                failed.append(f"{tag} pair {(i, j)}: fit R {row['r_diff']} t {row['t_diff']} "
+                              f"> {TOL_POSE_STAGE}")
+
+        sync = {side: E.synchronize_poses(*rc, v) for side, rc in (
+            ("card", (enc.pairwise_poses, enc.pair_confidences)),
+            ("cpu", (cpu(enc.pairwise_poses), cpu(enc.pair_confidences))))}
+        raw = camera_sync.camera_synchronization(enc.pairwise_poses, enc.pair_confidences,
+                                                 pair_i, pair_j, v, so3_projection=False)
+        so3 = {"card": so3_project(raw[..., :3, :3]), "cpu": so3_project(cpu(raw[..., :3, :3]))}
+        stages = dict(sync_diff=max_diff(sync["card"], sync["cpu"]),
+                      sync_encoder_diff=max_diff(sync["card"], enc.sync_poses),
+                      so3_diff=max_diff(so3["card"], so3["cpu"]),
+                      so3_det_min=float(torch.linalg.det(so3["card"]).min()))
+        for k in ("sync_diff", "so3_diff"):
+            if stages[k] > TOL_POSE_STAGE:
+                failed.append(f"{tag}: {k} {stages[k]} > {TOL_POSE_STAGE}")
+
+        # the evaluator's pose errors (first-to-last pair) on the refined poses
+        truth = torch.as_tensor(scene["c2w"])
+        ev = {"card": pose_errors(torch.linalg.inv(enc.refined_poses), truth.cuda()),
+              "cpu": pose_errors(torch.linalg.inv(cpu(enc.refined_poses)), truth)}
+        stages["evaluator"] = {side: {k: cpu(x).tolist() for k, x in e.items()}
+                               for side, e in ev.items()}
+        ev_diff = max(max_diff(ev["card"][k], ev["cpu"][k])
+                      for k in ("rot_deg", "trans_angle_deg"))
+        stages["evaluator_deg_diff"] = ev_diff
+        if ev_diff > TOL_POSE_EVAL_DEG:
+            failed.append(f"{tag}: evaluator pose errors differ by {ev_diff} degrees")
+
+    with exact():
+        v_card, g_card = pose_loss_grads(pose_loss, enc, inputs[1])
+        v_cpu, g_cpu = pose_loss_grads(pose_loss, to_cpu(enc), cpu(inputs[1]))
+        loss = dict(value_card=float(v_card), value_cpu=float(v_cpu),
+                    value_rel_diff=abs(float(v_card) - float(v_cpu)) / abs(float(v_cpu)))
+        for name, gc, gp in zip(("refined_poses", "xyz", "depths"), g_card, g_cpu):
+            loss[f"grad_{name}_rel_diff"] = max_diff(gc, gp) / float(gp.abs().max())
+            loss[f"grad_{name}_max"] = float(gp.abs().max())
+    for k, x in loss.items():
+        if k.endswith("rel_diff") and not x <= TOL_POSE_LOSS:
+            failed.append(f"{tag}: pose_loss {k} {x} > {TOL_POSE_LOSS}")
+    if not (loss["value_card"] > 0 and math.isfinite(loss["value_card"])):
+        failed.append(f"{tag}: pose_loss {loss['value_card']} is not positive and finite")
+    return dict(ransac=pairs, **stages, pose_loss=loss), enc, g_card, failed
+
+
+def pose_loss_grads(loss_fn, enc, intrinsics):
+    """`loss_fn` (`pose_loss` or its body) on `enc` and its gradients with
+    respect to the refined poses, the points and the depths."""
+    import torch
+
+    from pf3plat_tpu_torch.training.losses import LossCfg
+
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (enc.refined_poses, enc.xyz, enc.depths)]
+    value = loss_fn(enc._replace(refined_poses=leaves[0], xyz=leaves[1], depths=leaves[2]),
+                    intrinsics, LossCfg())
+    return value.detach(), torch.autograd.grad(value, leaves)
+
+
+@contextlib.contextmanager
+def without_exact(*modules, enabled: bool = True):
+    """Inside, each of `modules` finds `contextlib.nullcontext` under its
+    name `exact`: its exact() scopes are gone, as the pose path ran before
+    they were added."""
+    saved = [m.exact for m in modules]
+    try:
+        if enabled:
+            for m in modules:
+                m.exact = contextlib.nullcontext
+        yield
+    finally:
+        for m, x in zip(modules, saved):
+            m.exact = x
+
+
+def count_syncs(fn) -> dict:
+    """{"file:line": host syncs} of `fn()` under
+    torch.cuda.set_sync_debug_mode("warn"): each warning is put on the
+    innermost frame of the port's package in its stack."""
+    import traceback
+    import warnings
+
+    import torch
+
+    counts: dict = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        frames = [f for f in traceback.extract_stack() if "pf3plat_tpu_torch" in f.filename]
+        where = (f"{Path(frames[-1].filename).relative_to(REPO)}:{frames[-1].lineno}"
+                 if frames else f"{filename}:{lineno}")
+        counts[where] = counts.get(where, 0) + 1
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def pose_path(zero_match_step_ms: float | None = None) -> None:
+    """Phase pose_path: the pose path (RANSAC, camera sync, the refinement,
+    the pose loss) on the card with real correspondences, at full width
+    (configs/re10k.yaml's model, 512 matches a pair, 128 hypotheses, 256 x
+    256), on the serving request (b=1, v=5, 10 pairs) and the train step's
+    batch (b=3, v=3). Perception's depth and matches are the scene's
+    (tests/torch_pose_scene.py), its features perception's own; the pose
+    head's last layer random (POSE_HEAD_STD). (a) pose_stages on both
+    inputs; (b) the encoder under the declared policy against exact(), and
+    the sync's squarings alone under the policy; (c) the coarse and
+    synchronised poses' errors against the scene's truth, card against the
+    CPU on the same points; (d) `make_train_step` with the pose term live:
+    pose loss, gradient norm, the pose loss's own gradient norm, launches,
+    ms beside a zero-match step (and train_frozen's step if given); (e) the
+    host syncs of the serving encoder and of the pose loss. Fails after
+    printing everything when a gate failed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from pf3plat_tpu_torch.models import encoder as E
+    from pf3plat_tpu_torch.models.pf3plat import PF3plat
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.precision import exact
+    from pf3plat_tpu_torch.training import losses, metrics
+    from pf3plat_tpu_torch.utils import profiling
+    from pf3plat_tpu_torch.training.losses import LossCfg, pose_loss
+    from pf3plat_tpu_torch.training.train import (
+        OptimizerCfg, TrainState, make_optimizer, make_train_step)
+
+    ps = load_pose_scene()
+    torch.manual_seed(SEED)
+    model = PF3plat(model_config(), device="cuda")
+    ps.live_pose_head(model.encoder, SEED, POSE_HEAD_STD)
+    cfg = model.cfg.encoder
+    failed = []
+    report = {}
+    encs = {}
+    for tag, (b, v) in (("serve", (1, SERVE_VIEWS)), ("train", (3, 3))):
+        scene, inputs, frozen, corr, noise = pose_inputs(model, b, v, SEED)
+        row, enc_exact, grads_exact, bad = pose_stages(tag, model, scene, inputs, frozen,
+                                                       corr, noise)
+        truth_c2w = torch.as_tensor(scene["c2w"], device="cuda")
+        failed += bad
+        row["matches_valid_per_pair"] = corr.valid.sum(-1).min().item()
+        if row["matches_valid_per_pair"] == 0:
+            failed.append(f"{tag}: a pair without valid matches")
+
+        # (b) the declared policy against exact(), on the card; the serving
+        # input through the entry point (PF3plat.forward, perception
+        # replaced by the scene's)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            if tag == "serve":
+                model.perceive = lambda images, intr: (frozen, corr)
+                try:
+                    enc, out = model(*inputs, 0, ransac_noise=noise)
+                finally:
+                    del model.perceive
+            else:
+                enc = model.encoder(*inputs, frozen, corr, 0, ransac_noise=noise)
+        torch.cuda.synchronize()
+        policy = dict(ms=(time.perf_counter() - t0) * 1e3, launches=dict(kernels.LAUNCHES))
+        want = FWD_KERNELS["streamed"] + MODEL_FWD_KERNELS if tag == "serve" else ()
+        if any(policy["launches"][k] < 1 for k in want):
+            failed.append(f"{tag}: the request launched {policy['launches']}")
+        if tag == "serve" and not bool(torch.isfinite(out.color).all()):
+            failed.append("serve: non-finite colours")
+        for f in ("pairwise_poses", "sync_poses", "refined_poses"):
+            policy[f"{f}_diff"] = max_diff(getattr(enc, f), getattr(enc_exact, f))
+            if policy[f"{f}_diff"] > TOL_POSE_POLICY:
+                failed.append(f"{tag}: {f} under the policy {policy[f + '_diff']} from "
+                              f"exact() > {TOL_POSE_POLICY}")
+        policy["xyz_rel_diff"] = max_diff(enc.xyz, enc_exact.xyz) / float(enc_exact.xyz.abs().max())
+        # each stage alone under the policy, from the exact run's inputs,
+        # with its exact() scope and without it
+        for scoped in (True, False):
+            key = "" if scoped else "_without_exact"
+            with torch.no_grad(), without_exact(E, metrics, enabled=not scoped):
+                rel_p, _ = E.coarse_poses(cfg, enc_exact.xyz, corr, noise)
+                policy["coarse_alone_diff" + key] = max_diff(rel_p, enc_exact.pairwise_poses)
+                policy["sync_alone_diff" + key] = max_diff(
+                    E.synchronize_poses(enc_exact.pairwise_poses, enc_exact.pair_confidences,
+                                        v), enc_exact.sync_poses)
+                ev = metrics.pose_errors(torch.linalg.inv(enc_exact.refined_poses), truth_c2w)
+                policy["evaluator_deg_diff" + key] = max(
+                    max_diff(ev[k], torch.as_tensor(row["evaluator"]["card"][k]))
+                    for k in ("rot_deg", "trans_angle_deg"))
+            loss_fn = losses.pose_loss if scoped else losses._pose_loss
+            value, grads = pose_loss_grads(loss_fn, enc_exact, inputs[1])
+            policy["pose_loss_rel_diff" + key] = abs(
+                float(value) - row["pose_loss"]["value_card"]) / row["pose_loss"]["value_card"]
+            policy["pose_loss_grad_rel_diff" + key] = max(
+                max_diff(g, ref) / float(ref.abs().max()) for g, ref in zip(grads, grads_exact))
+        for k, tol in (("evaluator_deg_diff", TOL_POSE_EVAL_DEG),
+                       ("pose_loss_rel_diff", TOL_POSE_LOSS),
+                       ("pose_loss_grad_rel_diff", TOL_POSE_LOSS)):
+            if not policy[k] <= tol:
+                failed.append(f"{tag}: {k} under the policy {policy[k]} > {tol}")
+        row["policy"] = policy
+
+        # (c) recovery of the scene's motion: the card's (policy) coarse and
+        # synchronised poses against the CPU's from the same points
+        with exact(), torch.no_grad():
+            rel_cpu, conf_cpu = E.coarse_poses(cfg, enc.xyz.cpu(), to_cpu(enc).correspondences,
+                                               noise.cpu())
+            sync_cpu = E.synchronize_poses(rel_cpu, conf_cpu, v)
+        truth = {"pairwise_poses": scene["rel"], "sync_poses": np.linalg.inv(scene["c2w"]),
+                 "refined_poses": np.linalg.inv(scene["c2w"])}
+        recovery = {}
+        for f, cpu_poses in (("pairwise_poses", rel_cpu), ("sync_poses", sync_cpu),
+                             ("refined_poses", None)):
+            card = ps.pose_errors(getattr(enc, f).cpu().numpy(), truth[f])
+            recovery[f] = dict(card=card)
+            if cpu_poses is None:  # information: the random pose head moves it
+                continue
+            recovery[f]["cpu"] = ps.pose_errors(cpu_poses.numpy(), truth[f])
+            worse = {k: card[k] - recovery[f]["cpu"][k] for k in card}
+            if max(worse.values()) > TOL_POSE_RECOVERY_DEG:
+                failed.append(f"{tag}: {f} recover the motion worse on the card: {worse}")
+        row["recovery"] = recovery
+        encs[tag] = (scene, inputs, frozen, corr, noise)
+        emit(dict(phase="pose_path", part=f"{tag} (a) stages, (b) policy, (c) recovery",
+                  batch=[b, v, *POSE_IMAGE], matches=model.cfg.max_matches,
+                  hypotheses=cfg.ransac_samples, **row))
+        report[tag] = row
+
+    # (d) make_train_step with the pose term live on the train input
+    scene, inputs, frozen, corr, noise = encs["train"]
+    images, intr, near, far = inputs
+    b, v, h, w = images.shape[:4]
+    params = list(model.encoder.parameters())
+    initial = [p.detach().clone() for p in params]
+    opt = make_optimizer(OptimizerCfg())
+
+    def fresh() -> TrainState:
+        with torch.no_grad():
+            for p, x in zip(params, initial):
+                p.copy_(x)
+        return TrainState(params, opt.init(params), 0)
+
+    def batch(c):
+        return dict(context=dict(image=images, intrinsics=intr, near=near, far=far),
+                    target=dict(image=images), frozen=frozen, corr=c)
+
+    no_match = corr._replace(valid=torch.zeros_like(corr.valid))
+    want = {k: 1 for k in TRAIN_KERNELS["streamed"]}
+    attention = attention_per_step(model.cfg)
+    attention["attention_fwd"] -= model.cfg.unidepth.vit.depth  # no perception in the step
+    want.update(attention)
+    variants = {"pose_live": (LossCfg(), corr),
+                "pose_only": (LossCfg(mse_weight=0.0, ssim_weight=0.0, lpips_weight=0.0), corr),
+                "zero_match": (LossCfg(), no_match)}
+    step_fns = {name: make_train_step(model.encoder, model.cfg.decoder, loss_cfg, opt, (h, w),
+                                      lpips_apply=model.lpips_apply)
+                for name, (loss_cfg, _) in variants.items()}
+    step_fns["pose_live"](fresh(), batch(corr), ransac_noise=noise)  # warm-up
+    steps = {}
+    # in turns, each from the same parameters: the step's spread shows
+    for name in ("pose_live", "zero_match", "pose_only", "pose_live", "zero_match"):
+        state = fresh()
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        timer.start()
+        _, aux = step_fns[name](state, batch(variants[name][1]), ransac_noise=noise,
+                                timer=timer)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kernels.LAUNCHES)
+        if name in steps:
+            steps[name]["ms"].append(ms)
+            steps[name]["stages"].append(timer.stage_ms())
+            continue
+        steps[name] = dict(ms=[ms], stages=[timer.stage_ms()], launches=launches,
+                           **{k: float(x) for k, x in aux.items()})
+        wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+        if wrong:
+            failed.append(f"train step {name}: launches {wrong}, want {want}")
+    live = steps["pose_live"]
+    if not (live["pose"] > 0 and math.isfinite(live["pose"])):
+        failed.append(f"train step: pose loss {live['pose']} is not positive and finite")
+    if not all(math.isfinite(s["grad_norm"]) for s in steps.values()):
+        failed.append("train step: a non-finite gradient norm")
+    if steps["zero_match"]["pose"] != 0.0:
+        failed.append(f"zero-match step: pose loss {steps['zero_match']['pose']}")
+    # one traced step of each: where the live pose term's time goes
+    traced, ops = {}, {}
+    for name in ("pose_live", "zero_match"):
+        trace_dir = POSE_TRACES / name
+        shutil.rmtree(trace_dir, ignore_errors=True)
+        state = fresh()
+        with profiling.trace(trace_dir, f"pose_{name}"):
+            step_fns[name](state, batch(variants[name][1]), ransac_noise=noise)
+        traced[name] = trace_window(trace_dir, f"pose_{name}")
+        ops[name] = {(r["launched_by"], r["name"][:80]): r
+                     for r in profiling.device_op_breakdown(trace_dir, window=f"pose_{name}")}
+    keys = set(ops["pose_live"]) | set(ops["zero_match"])
+
+    def device_ms(name, key):
+        return ops[name][key]["total_us"] / 1e3 if key in ops[name] else 0.0
+
+    def device_count(name, key):
+        return ops[name][key]["count"] if key in ops[name] else 0
+
+    grew = sorted(keys, key=lambda k: device_ms("zero_match", k) - device_ms("pose_live", k))
+    fresh()
+    emit(dict(phase="pose_path", part="(d) make_train_step", batch=[b, v, h, w],
+              steps=steps, pose_grad_norm_share=(steps["pose_only"]["grad_norm"]
+                                                 / live["grad_norm"]),
+              train_frozen_zero_match_ms=zero_match_step_ms, launches_want=want,
+              traced=traced,
+              ops_grown_most=[dict(launched_by=k[0], name=k[1],
+                                   ms=[device_ms("pose_live", k), device_ms("zero_match", k)],
+                                   count=[device_count("pose_live", k),
+                                          device_count("zero_match", k)])
+                              for k in grew[:8]]))
+
+    # (e) host syncs of the serving request's encoder (the policy) and of the
+    # train input's pose loss, forward and backward
+    scene, inputs, frozen, corr, noise = encs["serve"]
+
+    def encoder_call():
+        with torch.no_grad():
+            model.encoder(*inputs, frozen, corr, 0, ransac_noise=noise)
+
+    syncs = {"serve_encoder": count_syncs(encoder_call)}
+    scene, inputs, frozen, corr, noise = encs["train"]
+    with torch.no_grad():
+        enc = model.encoder(*inputs, frozen, corr, 0, ransac_noise=noise)
+    leaves = [x.detach().clone().requires_grad_(True)
+              for x in (enc.refined_poses, enc.xyz, enc.depths)]
+
+    def loss_call():
+        val = pose_loss(enc._replace(refined_poses=leaves[0], xyz=leaves[1], depths=leaves[2]),
+                        inputs[1], LossCfg())
+        val.backward()
+
+    syncs["train_pose_loss"] = count_syncs(loss_call)
+    pose_files = ("geometry/", "models/encoder.py", "training/losses.py")
+    emit(dict(phase="pose_path", part="(e) host syncs",
+              totals={k: sum(c.values()) for k, c in syncs.items()},
+              pose_stage={k: sum(n for where, n in c.items()
+                                 if any(f in where for f in pose_files))
+                          for k, c in syncs.items()},
+              by_line=syncs))
+    del model, encs, enc
+    torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("pose_path: " + "; ".join(failed))
 
 
 # Phase memory_policy: the encoder's remat modes and compute dtypes on the
@@ -2780,7 +3528,8 @@ MEMORY_SCENES = 7
 MEMORY_REDUCED = ["max_steps 300001 -> 2"]
 
 
-def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = False) -> dict:
+def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = False,
+                shared: dict | None = None) -> dict:
     """The training step of record (the train phase's model, batch and
     seeds, `streamed` decoder) with the encoder knobs `knobs`: a warm-up
     step, then one timed step -> its ms, stage split, peak bytes (whole step
@@ -2790,7 +3539,10 @@ def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = 
     `trace_dir`, one more step is traced there and its ten heaviest device
     operations are returned. With `exact_steps`, the same two steps run once
     more from the same parameters and generator under `exact()`: their
-    losses and gradient norms as `exact`."""
+    losses and gradient norms as `exact`. With `shared` too, the first call
+    puts its exact step 1's state there and later calls take their exact
+    step 2 from it (two steps in turn differ by Adam's first update on
+    noise-level gradients: `TOL_TRAIN_MESH`)."""
     import gc
     import shutil
 
@@ -2848,6 +3600,11 @@ def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = 
         gen = torch.Generator(device="cuda").manual_seed(SEED)
         with exact():
             state, first = step_fn(state, batch, generator=gen)
+            if shared is not None:
+                if "step1" not in shared:
+                    shared["step1"] = snapshot(state, gen)
+                else:
+                    state = restore(state, gen, shared["step1"])
             state, second = step_fn(state, batch, generator=gen)
         row["exact"] = dict(warmup={k: float(first[k]) for k in ("loss", "grad_norm")},
                             **{k: float(second[k]) for k in ("loss", "grad_norm")})
@@ -2927,16 +3684,19 @@ def memory_policy() -> None:
     """Phase memory_policy. (a) The training step of record at b=3 under
     remat off, selective and coarse: loss and gradient norm within TOL_REMAT
     of the step without remat (warm-up and timed step, run once more under
-    `exact()` for this gate), selective's peak
+    `exact()` for this gate: step 1 from the same parameters, step 2 from
+    the step 1 state without remat), selective's peak
     below off's, attention launches as derived for each mode. (b) The
     selective step at unet_dtype = costvolume_dtype = bfloat16: its loss
     within TOL_BF16_LOSS of the float32 step's and not equal to it; one
     traced step of each, float32 and bfloat16, with their heaviest device
     operations. (c) `main` at the batch of record (`main_batch_of_record`);
     its peak against (a)'s at b=3 gives the bytes an example adds."""
+    shared = {}  # "off" (first) puts its exact step 1's state here
     rows = {mode: policy_step(knobs, TRACE_DIR / "memory_f32" if mode == "selective" else None,
-                              exact_steps=True)
+                              exact_steps=True, shared=shared)
             for mode, knobs in REMAT_MODES.items()}
+    del shared
     off = rows["off"]
 
     def rel(a, b):
@@ -4106,6 +4866,19 @@ def main(argv) -> int:
         print(smi, flush=True)
         return 0
 
+    if "--pose" in argv:
+        # the pose path alone, then the index generator's pair search
+        pose_path()
+        index_pairs()
+        print(smi, flush=True)
+        return 0
+
+    if "--mesh-spread" in argv:
+        # the sharded and unsharded exact-expansion steps, repeated
+        mesh_spread()
+        print(smi, flush=True)
+        return 0
+
     if "--attention-ablations" in argv:
         attention_ablations()
         print(smi, flush=True)
@@ -4210,28 +4983,34 @@ def main(argv) -> int:
                              f"differ by {worst} > {TOL_TRAIN_BACKENDS}")
     # The sharded step on a (data=2, tile=2) mesh of the one card: without
     # compaction (B2 and B5 once per shard) it must reproduce the unsharded
-    # exact-expansion step; with the production config it takes the
+    # exact-expansion step, step 1 from the same parameters and step 2 from
+    # the unsharded step 1's state; with the production config it takes the
     # shard-local pipeline (B1-B4 once per shard). The two sides differ in
     # shape, so the comparison runs under exact().
     mesh = make_mesh(MeshCfg(data_axis=2, tile_axis=2), device="cuda")
+    shared = {}
     with exact():
-        _, launches_m, trace_m, _ = train("streamed", 1, raster=RasterizeConfig(), mesh=mesh)
-        _, _, trace_s, _ = train("streamed", 1, raster=RasterizeConfig())
-        # The unsharded step once more, for its own run-to-run spread beside
-        # the gate (information: the encoder's backward is not
-        # bit-reproducible, and Adam's first step turns that into
-        # gradient-norm differences).
+        _, _, trace_s, _ = train("streamed", 1, raster=RasterizeConfig(), shared=shared)
+        _, launches_m, trace_m, _ = train("streamed", 1, raster=RasterizeConfig(), mesh=mesh,
+                                          shared=shared)
+        # The unsharded step once more, two steps in turn, for its own
+        # run-to-run spread beside the gate (information: the encoder's
+        # backward is not bit-reproducible, and Adam's first step turns
+        # that into gradient-norm differences at step 2).
         _, _, trace_s2, _ = train("streamed", 1, raster=RasterizeConfig())
     worst = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_m, trace_s)
                 for k in ("loss", "grad_norm"))
+    moment = shared["first_moment_rel"]
     rerun = max(abs(a[k] - c[k]) / abs(c[k]) for a, c in zip(trace_s2, trace_s)
                 for k in ("loss", "grad_norm"))
+    del shared
     emit(dict(phase="train_mesh_vs_unsharded", sharded=trace_m, unsharded=trace_s,
-              max_rel_diff=worst, tol=TOL_TRAIN_MESH, unsharded_rerun=trace_s2,
+              max_rel_diff=worst, first_moment_max_rel_diff=moment, tol=TOL_TRAIN_MESH,
+              step2_from="the unsharded step 1's state", unsharded_rerun_in_turn=trace_s2,
               unsharded_rerun_max_rel_diff=rerun))
-    if not worst <= TOL_TRAIN_MESH:
+    if not (worst <= TOL_TRAIN_MESH and moment <= TOL_TRAIN_MESH):
         raise AssertionError(f"train_mesh: sharded (B5 path) vs unsharded loss / grad_norm "
-                             f"differ by {worst} > {TOL_TRAIN_MESH}")
+                             f"differ by {worst}, gradients by {moment} > {TOL_TRAIN_MESH}")
     launches["composite_bwd_blocks"] = launches_m["composite_bwd_blocks"]
     train("streamed", 1, mesh=mesh)
     with exact():
@@ -4249,7 +5028,9 @@ def main(argv) -> int:
                                                 RasterizeConfig(), "train")
     del scene, screen, captured
     torch.cuda.empty_cache()
-    train_frozen()
+    zero_match_ms = train_frozen()
+    torch.cuda.empty_cache()
+    pose_path(zero_match_ms)
     torch.cuda.empty_cache()
     memory_policy()
 

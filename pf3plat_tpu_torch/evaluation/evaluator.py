@@ -32,8 +32,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..geometry.transforms import geodesic_distance, translation_angle
-from ..training.metrics import compute_psnr, compute_ssim, pose_auc
+from ..precision import exact
+from ..training.metrics import compute_psnr, compute_ssim, pose_auc, pose_errors
 from ..utils.benchmarker import Benchmarker
 from ..visualization.layout import apply_depth_color_map, hcat, save_image, save_video, vcat
 
@@ -115,15 +115,10 @@ class Evaluator:
             if "extrinsics" in ctx:
                 gt_c2w = torch.as_tensor(np.asarray(ctx["extrinsics"]),
                                          dtype=torch.float32).to(self.device)
-                pred_c2w = torch.linalg.inv(enc.refined_poses)
-                rel_p = torch.matmul(torch.linalg.inv(pred_c2w[:, -1]), pred_c2w[:, 0])
-                rel_g = torch.matmul(torch.linalg.inv(gt_c2w[:, -1]), gt_c2w[:, 0])
-                record["rot_deg"] = float(torch.rad2deg(
-                    geodesic_distance(rel_p[:, :3, :3], rel_g[:, :3, :3])).mean())
-                record["trans_angle_deg"] = float(torch.rad2deg(
-                    translation_angle(rel_p[:, :3, 3], rel_g[:, :3, 3])).mean())
-                record["trans_norm"] = float(torch.linalg.norm(
-                    rel_p[:, :3, 3] - rel_g[:, :3, 3], dim=-1).mean())
+                with exact():
+                    errors = pose_errors(torch.linalg.inv(enc.refined_poses), gt_c2w)
+                for k in ("rot_deg", "trans_angle_deg", "trans_norm"):
+                    record[k] = float(errors[k].mean())
 
         record["bucket"] = overlap_bucket(example.get("overlap"))
         self.records.append(record)

@@ -49,23 +49,18 @@ def gumbel_noise(
     return -torch.log(-torch.log(torch.clamp(u, min=tiny, max=1.0 - 2**-24)))
 
 
-def align_ransac(
+def ransac_inliers(
     p: torch.Tensor,
     q: torch.Tensor,
     weights: torch.Tensor,
     noise: torch.Tensor,
     n_hot: int = 3,
     threshold: torch.Tensor | float = 0.01,
-) -> RigidTransform:
-    """Soft RANSAC rigid alignment, batched.
-
-    p, q: (b, n, 3); weights: (b, n); noise: (b, n_samples, n) Gumbel
-    draws; threshold: scalar or (b,). Samples n_samples minimal subsets by
-    Gumbel-top-k, fits each with weighted Kabsch, scores soft inliers
-    exp(-|residual| / threshold), and refits on the best hypothesis's
-    renormalized inliers.
-    """
-    n = p.shape[-2]
+) -> torch.Tensor:
+    """The hypotheses of `align_ransac` and their soft inliers, (b, S, n):
+    n_samples minimal subsets drawn by Gumbel-top-k, each fitted with
+    weighted Kabsch, every correspondence scored exp(-|residual| / threshold)
+    under every fit."""
     log_w = torch.log(torch.clamp(weights, min=1e-12))
     idx = torch.topk(log_w[:, None, :] + noise, n_hot, dim=-1).indices  # (b,S,k)
 
@@ -83,8 +78,26 @@ def align_ransac(
     thr = torch.as_tensor(threshold, dtype=p.dtype, device=p.device)
     if thr.dim() == 1:
         thr = thr[:, None, None]
-    inliers = torch.exp(-delta / thr)
+    return torch.exp(-delta / thr)
 
+
+def align_ransac(
+    p: torch.Tensor,
+    q: torch.Tensor,
+    weights: torch.Tensor,
+    noise: torch.Tensor,
+    n_hot: int = 3,
+    threshold: torch.Tensor | float = 0.01,
+) -> RigidTransform:
+    """Soft RANSAC rigid alignment, batched.
+
+    p, q: (b, n, 3); weights: (b, n); noise: (b, n_samples, n) Gumbel
+    draws; threshold: scalar or (b,). Scores the hypotheses of
+    `ransac_inliers` by their inlier sums and refits on the best one's
+    renormalized inliers.
+    """
+    n = p.shape[-2]
+    inliers = ransac_inliers(p, q, weights, noise, n_hot, threshold)
     best = torch.argmax(inliers.sum(dim=-1), dim=-1)  # (b,)
     best_inliers = inliers[torch.arange(p.shape[0], device=p.device), best]
     best_inliers = best_inliers / torch.clamp(

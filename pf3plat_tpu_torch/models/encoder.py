@@ -21,6 +21,7 @@ from torch import nn
 from ..geometry import camera_sync, procrustes
 from ..geometry.projection import get_world_rays, sample_image_grid, se3_inverse, unproject
 from ..geometry.transforms import make_rt, matrix_to_rotation_6d, rotation_6d_to_matrix
+from ..precision import exact
 from .costvolume import DepthPredictorCfg, DepthPredictorMultiView
 from .gaussian_adapter import GaussianAdapterCfg, adapt_gaussians
 from .layers import (
@@ -126,6 +127,80 @@ class EncoderOutput(NamedTuple):
     pair_confidences: torch.Tensor  # (b, n_pairs)
 
 
+def lookup_xyz(xyz: torch.Tensor, view: int, kpts: torch.Tensor) -> torch.Tensor:
+    """The camera-space points (b, m, 3) of view `view` of `xyz` (b, v, h,
+    w, 3) at the pixels the keypoints `kpts` (b, m, 2) fall in."""
+    b, _, h, w, _ = xyz.shape
+    xi = torch.clamp(kpts[..., 0].to(torch.int32), 0, w - 1)
+    yi = torch.clamp(kpts[..., 1].to(torch.int32), 0, h - 1)
+    flat = xyz[:, view].reshape(b, h * w, 3)
+    index = (yi * w + xi).to(torch.int64)[..., None].expand(b, kpts.shape[1], 3)
+    return torch.gather(flat, 1, index)
+
+
+def ransac_inputs(cfg: EncoderCfg, xyz: torch.Tensor, corr: Correspondences, p: int, i: int,
+                  j: int):
+    """Pair `p` = (i, j)'s RANSAC inputs: the matched points of both views
+    (b, m, 3), their weights (b, m) and the inlier threshold (b,), relative
+    to the median depth of view j's points."""
+    x_i = lookup_xyz(xyz, i, corr.kpts0[:, p]).detach()
+    x_j = lookup_xyz(xyz, j, corr.kpts1[:, p]).detach()
+    weights = torch.where(corr.valid[:, p], torch.clamp(corr.scores[:, p], min=1e-4),
+                          torch.full_like(corr.scores[:, p], 1e-6))
+    thr = cfg.ransac_threshold * torch.clamp(
+        torch.quantile(x_j[..., 2], 0.5, dim=-1), min=1e-3)
+    return x_i, x_j, weights, thr
+
+
+def coarse_poses(cfg: EncoderCfg, xyz: torch.Tensor, corr: Correspondences,
+                 ransac_noise: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The coarse pairwise poses (b, n_pairs, 4, 4), cam_i -> cam_j by
+    Procrustes RANSAC on the matched points (the identity where a pair has
+    fewer than 8 valid matches), and the pairs' confidences (b, n_pairs):
+    the mean score of the valid matches, shifted by `confidence_min` and
+    rescaled for pairs of views that are not neighbours. Exact float32
+    products whatever the policy says (`precision.exact`): under TF32 the
+    fits of points at depth ~4 move by ~2e-3 and leave SO(3) (README,
+    documented deviation 5)."""
+    v = xyz.shape[1]
+    eye4 = torch.eye(4, dtype=xyz.dtype, device=xyz.device)
+    rel_list, conf_list = [], []
+    with exact():
+        for p, (i, j) in enumerate(zip(*view_pairs(v))):
+            x_i, x_j, weights, thr = ransac_inputs(cfg, xyz, corr, p, i, j)
+            fit = procrustes.align_ransac(x_i, x_j, weights, ransac_noise[:, p], threshold=thr)
+            rel = make_rt(fit.r, fit.t)
+            valid = corr.valid[:, p]
+            msum = valid.sum(-1)
+            rel_list.append(torch.where((msum >= 8)[:, None, None], rel, eye4))
+            conf = torch.where(
+                msum > 0,
+                (corr.scores[:, p] * valid).sum(-1) / torch.clamp(msum, min=1),
+                torch.zeros_like(corr.scores[:, p, 0]),
+            )
+            if abs(i - j) > 1:
+                conf = torch.clamp(conf - cfg.confidence_min, min=0.0) / (1.0 - cfg.confidence_min)
+            conf_list.append(conf)
+    return torch.stack(rel_list, dim=1), torch.stack(conf_list, dim=1)
+
+
+def synchronize_poses(rel_poses: torch.Tensor, confs: torch.Tensor, v: int) -> torch.Tensor:
+    """The views' poses (b, v, 4, 4), view 0 -> view k: the chain of the
+    neighbouring pairs for two views, else the spectral synchronisation of
+    every pair with that chain where its mass degenerates. Exact float32
+    products (`precision.exact`): under TF32 the ten squarings of the 4v x
+    4v matrix move five views' poses by ~0.1."""
+    pair_i, pair_j = view_pairs(v)
+    with exact():
+        if v == 2:
+            return camera_sync.camera_chaining(rel_poses)
+        pairs = list(zip(pair_i, pair_j))
+        seq = [pairs.index((k, k + 1)) for k in range(v - 1)]
+        chain = camera_sync.camera_chaining(rel_poses[:, seq])
+        return camera_sync.camera_synchronization(rel_poses, confs, pair_i, pair_j, v,
+                                                  fallback=chain)
+
+
 def _zero_(linear: nn.Linear) -> None:
     nn.init.zeros_(linear.weight)
     nn.init.zeros_(linear.bias)
@@ -191,8 +266,7 @@ class PoseFreeEncoder(nn.Module):
         h4, w4 = h // cfg.downscale_factor, w // cfg.downscale_factor
         d = cfg.d_feature
         dev, dt = images.device, images.dtype
-        pair_i, pair_j = view_pairs(v)
-        n_pairs = len(pair_i)
+        n_pairs = v * (v - 1) // 2
         nf = near[..., None, None]
         ff = far[..., None, None]
 
@@ -242,50 +316,8 @@ class PoseFreeEncoder(nn.Module):
         if ransac_noise is None:
             ransac_noise = procrustes.gumbel_noise(
                 (b, n_pairs, cfg.ransac_samples, m), generator, dev, dt)
-
-        def lookup_xyz(view_idx, kpts):
-            xi = torch.clamp(kpts[..., 0].to(torch.int32), 0, w - 1)
-            yi = torch.clamp(kpts[..., 1].to(torch.int32), 0, h - 1)
-            flat = xyz[:, view_idx].reshape(b, h * w, 3)
-            index = (yi * w + xi).to(torch.int64)[..., None].expand(b, m, 3)
-            return torch.gather(flat, 1, index)
-
-        rel_list, conf_list = [], []
-        eye4 = torch.eye(4, dtype=dt, device=dev)
-        for p, (i, j) in enumerate(zip(pair_i, pair_j)):
-            x_i = lookup_xyz(i, corr.kpts0[:, p])
-            x_j = lookup_xyz(j, corr.kpts1[:, p])
-            valid = corr.valid[:, p]
-            weights = torch.where(valid, torch.clamp(corr.scores[:, p], min=1e-4),
-                                  torch.full_like(corr.scores[:, p], 1e-6))
-            thr = cfg.ransac_threshold * torch.clamp(
-                torch.quantile(x_j[..., 2], 0.5, dim=-1), min=1e-3)
-            fit = procrustes.align_ransac(
-                x_i.detach(), x_j.detach(), weights, ransac_noise[:, p],
-                threshold=thr.detach())
-            rel = make_rt(fit.r, fit.t)
-            enough = (valid.sum(-1) >= 8)[:, None, None]
-            rel_list.append(torch.where(enough, rel, eye4))
-            msum = valid.sum(-1)
-            conf = torch.where(
-                msum > 0,
-                (corr.scores[:, p] * valid).sum(-1) / torch.clamp(msum, min=1),
-                torch.zeros_like(corr.scores[:, p, 0]),
-            )
-            if abs(i - j) > 1:
-                conf = torch.clamp(conf - cfg.confidence_min, min=0.0) / (1.0 - cfg.confidence_min)
-            conf_list.append(conf)
-        rel_poses = torch.stack(rel_list, dim=1)
-        confs = torch.stack(conf_list, dim=1)
-
-        if v == 2:
-            sync_abspose = camera_sync.camera_chaining(rel_poses)
-        else:
-            pairs = list(zip(pair_i, pair_j))
-            seq = [pairs.index((k, k + 1)) for k in range(v - 1)]
-            chain = camera_sync.camera_chaining(rel_poses[:, seq])
-            sync_abspose = camera_sync.camera_synchronization(
-                rel_poses, confs, pair_i, pair_j, v, fallback=chain)
+        rel_poses, confs = coarse_poses(cfg, xyz, corr, ransac_noise)
+        sync_abspose = synchronize_poses(rel_poses, confs, v)
         sync_abspose = sync_abspose.detach()  # (b, v, 4, 4) w2c
 
         # ---- pose refinement transformer ----

@@ -14,7 +14,10 @@ exact float32 (`precision="highest"`), and runs its frozen perception under
   `decision_head` applies it to perception's keypoint and match heads
   inside bf16 autocast;
 - `apply_policy(device)`: the declared setting for every float32 product
-  that no call site pins (`TF32`), set by each entry point on the card.
+  that no call site pins (`TF32`), set by each entry point on the card;
+- `exact_call(fn, *tensors)`: a whole function exact forward and backward
+  (the pose loss; the pose stage and the evaluator's pose errors, which
+  take no gradient, run inside `exact()`).
 
 Only torch's legacy flags are touched (`torch.backends.cuda.matmul.allow_tf32`,
 `torch.backends.cudnn.allow_tf32`): mixing them with the newer
@@ -126,3 +129,32 @@ def exact_einsum(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     appear in the other operand or the output (no index summed within one
     operand)."""
     return _ExactEinsum.apply(spec, a, b)
+
+
+class _ExactCall(torch.autograd.Function):
+    """`fn(*tensors)` under `exact()`, forward and backward: the backward
+    runs the forward once more under `exact()` and takes its gradient
+    there, so the products of both passes are exact."""
+
+    @staticmethod
+    def forward(ctx, fn, *tensors):
+        ctx.fn = fn
+        ctx.save_for_backward(*tensors)
+        with exact():
+            return fn(*tensors)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inputs = [x.detach().requires_grad_(need)
+                  for x, need in zip(ctx.saved_tensors, ctx.needs_input_grad[1:])]
+        wanted = [x for x in inputs if x.requires_grad]
+        with exact(), torch.enable_grad():
+            got = iter(torch.autograd.grad(ctx.fn(*inputs), wanted, grad, allow_unused=True))
+        return (None, *(next(got) if x.requires_grad else None for x in inputs))
+
+
+def exact_call(fn, *tensors: torch.Tensor) -> torch.Tensor:
+    """`fn(*tensors)`, one tensor out, in exact float32 forward and backward
+    whatever autocast or the TF32 policy say. Gradients reach `tensors`
+    only: tensors that `fn` reads from elsewhere get none."""
+    return _ExactCall.apply(fn, *tensors)

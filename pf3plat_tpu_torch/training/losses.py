@@ -16,6 +16,7 @@ import torch
 from ..geometry.projection import intrinsics_inverse
 from ..models.encoder import EncoderOutput, view_pairs
 from ..ops.ssim import ssim
+from ..precision import exact_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +75,19 @@ def project_to_other_image(xy, depth, k_i, k_j, rel, eps: float = 1e-8):
 def pose_loss(enc: EncoderOutput, intrinsics: torch.Tensor, cfg: LossCfg) -> torch.Tensor:
     """Confidence-weighted 3D + 2D correspondence residuals under the
     refined absolute poses (and, when `pose_weight_rel` > 0, under the
-    coarse pairwise poses too)."""
+    coarse pairwise poses too). Exact float32 products, forward and
+    backward, whatever the policy says (`precision.exact`): the residuals are
+    differences of points at depth ~4, which TF32 moves by ~1e-3 (README,
+    documented deviation 5). Gradients reach the refined poses, the points
+    and the depths."""
+    def loss(refined, xyz, depths):
+        return _pose_loss(enc._replace(refined_poses=refined, xyz=xyz, depths=depths),
+                          intrinsics, cfg)
+
+    return exact_call(loss, enc.refined_poses, enc.xyz, enc.depths)
+
+
+def _pose_loss(enc: EncoderOutput, intrinsics: torch.Tensor, cfg: LossCfg) -> torch.Tensor:
     b, v = enc.depths.shape[:2]
     h, w = enc.depths.shape[2:]
     pair_i, pair_j = view_pairs(v)

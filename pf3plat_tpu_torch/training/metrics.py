@@ -10,6 +10,7 @@ import torch
 
 from ..geometry.transforms import geodesic_distance, translation_angle
 from ..ops.ssim import ssim as _ssim
+from ..precision import exact
 
 
 def compute_psnr(ground_truth: torch.Tensor, predicted: torch.Tensor) -> torch.Tensor:
@@ -27,15 +28,19 @@ def compute_ssim(ground_truth: torch.Tensor, predicted: torch.Tensor) -> torch.T
 
 def pose_errors(pred_c2w: torch.Tensor, gt_c2w: torch.Tensor) -> dict:
     """Rotation geodesic (deg), translation norm, translation angle (deg)
-    of the first->last context pair ((..., v, 4, 4) camera-to-world)."""
+    of the first->last context pair ((..., v, 4, 4) camera-to-world), in
+    exact float32 whatever the policy says (`precision.exact`): under TF32
+    the relative rotation leaves SO(3), and the arccos of a trace near 3
+    turns that into a tenth of a degree of rotation error."""
     def rel(m):
         return torch.matmul(torch.linalg.inv(m[..., -1, :, :]), m[..., 0, :, :])
 
-    rp = rel(pred_c2w)
-    rg = rel(gt_c2w)
-    rot_deg = torch.rad2deg(geodesic_distance(rp[..., :3, :3], rg[..., :3, :3]))
-    t_norm = torch.linalg.norm(rp[..., :3, 3] - rg[..., :3, 3], dim=-1)
-    t_angle = torch.rad2deg(translation_angle(rp[..., :3, 3], rg[..., :3, 3]))
+    with exact():
+        rp = rel(pred_c2w)
+        rg = rel(gt_c2w)
+        rot_deg = torch.rad2deg(geodesic_distance(rp[..., :3, :3], rg[..., :3, :3]))
+        t_norm = torch.linalg.norm(rp[..., :3, 3] - rg[..., :3, 3], dim=-1)
+        t_angle = torch.rad2deg(translation_angle(rp[..., :3, 3], rg[..., :3, 3]))
     return {"rot_deg": rot_deg, "trans_norm": t_norm, "trans_angle_deg": t_angle}
 
 
