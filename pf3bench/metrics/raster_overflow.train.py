@@ -1,0 +1,8 @@
+"""raster_overflow.train (%): the share of the rasterizer's wanted pairs
+that kernel B1's static budget dropped over the profiled sub-window's
+steps, 100 x (wanted - written) / wanted from the program's counters."""
+from pf3bench import spans
+
+
+def read(run):
+    return spans.raster_overflow(run)

@@ -22,6 +22,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 # `run_validation`'s step offset for its random draws, the JAX package's
 # fold_in(rng, 2**30 + step).
 VALIDATION_STREAM = 2**30
@@ -67,7 +69,9 @@ def batch_iterator(cfg, stage, host_id, num_hosts, get_step, batch_size=None):
 
     JPEG decode runs on a background thread pool (`data/prefetch.py`) —
     the reference's multi-worker DataLoader equivalent
-    (`src/dataset/data_module.py:90-110`).
+    (`src/dataset/data_module.py:90-110`). Waiting on the pipeline for
+    each example is the span `pf3.data.wait`, stacking a batch
+    `pf3.data.collate`; neither stays open across a `yield`.
     """
     from .data.dataset import ChunkDataset, batch_examples
     from .data.prefetch import ExamplePipeline
@@ -99,12 +103,19 @@ def batch_iterator(cfg, stage, host_id, num_hosts, get_step, batch_size=None):
     try:
         while True:
             produced = False
-            for ex in pipeline:
+            examples = iter(pipeline)
+            while True:
+                with span("pf3.data.wait"):
+                    ex = next(examples, None)
+                if ex is None:
+                    break
                 produced = True
                 v = ex["context"]["image"].shape[0]
                 pending.setdefault(v, []).append(ex)
                 if len(pending[v]) == target_bs:
-                    yield batch_examples(pending.pop(v))
+                    with span("pf3.data.collate"):
+                        batch = batch_examples(pending.pop(v))
+                    yield batch
             if stage != "train" or not produced:
                 return
     finally:

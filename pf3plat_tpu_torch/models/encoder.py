@@ -22,6 +22,7 @@ from ..geometry import camera_sync, procrustes
 from ..geometry.projection import get_world_rays, sample_image_grid, se3_inverse, unproject
 from ..geometry.transforms import make_rt, matrix_to_rotation_6d, rotation_6d_to_matrix
 from ..precision import exact
+from ..utils.profiling import span
 from .costvolume import DepthPredictorCfg, DepthPredictorMultiView
 from .gaussian_adapter import GaussianAdapterCfg, adapt_gaussians
 from .layers import (
@@ -168,7 +169,9 @@ def coarse_poses(cfg: EncoderCfg, xyz: torch.Tensor, corr: Correspondences,
     with exact():
         for p, (i, j) in enumerate(zip(*view_pairs(v))):
             x_i, x_j, weights, thr = ransac_inputs(cfg, xyz, corr, p, i, j)
-            fit = procrustes.align_ransac(x_i, x_j, weights, ransac_noise[:, p], threshold=thr)
+            with span("pf3.encoder.ransac"):
+                fit = procrustes.align_ransac(x_i, x_j, weights, ransac_noise[:, p],
+                                              threshold=thr)
             rel = make_rt(fit.r, fit.t)
             valid = corr.valid[:, p]
             msum = valid.sum(-1)
@@ -191,7 +194,7 @@ def synchronize_poses(rel_poses: torch.Tensor, confs: torch.Tensor, v: int) -> t
     products (`precision.exact`): under TF32 the ten squarings of the 4v x
     4v matrix move five views' poses by ~0.1."""
     pair_i, pair_j = view_pairs(v)
-    with exact():
+    with span("pf3.encoder.sync"), exact():
         if v == 2:
             return camera_sync.camera_chaining(rel_poses)
         pairs = list(zip(pair_i, pair_j))
@@ -313,63 +316,65 @@ class PoseFreeEncoder(nn.Module):
 
         # ---- coarse pairwise poses: batched Procrustes RANSAC ----
         m = corr.kpts0.shape[2]
-        if ransac_noise is None:
-            ransac_noise = procrustes.gumbel_noise(
-                (b, n_pairs, cfg.ransac_samples, m), generator, dev, dt)
-        rel_poses, confs = coarse_poses(cfg, xyz, corr, ransac_noise)
-        sync_abspose = synchronize_poses(rel_poses, confs, v)
-        sync_abspose = sync_abspose.detach()  # (b, v, 4, 4) w2c
+        with span("pf3.encoder.pose"):
+            if ransac_noise is None:
+                ransac_noise = procrustes.gumbel_noise(
+                    (b, n_pairs, cfg.ransac_samples, m), generator, dev, dt)
+            rel_poses, confs = coarse_poses(cfg, xyz, corr, ransac_noise)
+            sync_abspose = synchronize_poses(rel_poses, confs, v)
+            sync_abspose = sync_abspose.detach()  # (b, v, 4, 4) w2c
 
         # ---- pose refinement transformer ----
-        dp = cfg.d_pose
-        xy4, _ = sample_image_grid((h4, w4), dt, dev)
-        xy4 = xy4.reshape(h4 * w4, 2)
-        enc_pts = torch.cat([torch.zeros((1, 2), dtype=dt, device=dev), xy4], dim=0)
-        encoding0 = self.posenc(enc_pts[None])
-        c2w_sync = se3_inverse(sync_abspose)
-        origins, directions = get_world_rays(
-            xy4[None, None], c2w_sync[:, :, None], intrinsics[:, :, None])
-        plucker = torch.cat([directions, torch.cross(origins, directions, dim=-1)], dim=-1)
-        feat4 = resize_bilinear(feat.reshape(b * v, hd, wd, d), (h4, w4))
-        desc0 = torch.cat([feat4.reshape(b, v, h4 * w4, d), plucker], dim=-1)
-        desc0 = self.conv_proj(desc0.reshape(b * v, h4, w4, d + 6)).reshape(b * v, h4 * w4, dp)
-        desc0 = torch.cat([self.pose_cls_token.expand(b * v, 1, dp), desc0], dim=1)
-        for blk in self._blocks("pose_transformers"):
-            desc0 = remat(blk, desc0, encoding0, enabled=cfg.remat)
-        desc0 = desc0[:, 1:].reshape(b, v, h4 * w4, dp)
+        with span("pf3.encoder.refine"):
+            dp = cfg.d_pose
+            xy4, _ = sample_image_grid((h4, w4), dt, dev)
+            xy4 = xy4.reshape(h4 * w4, 2)
+            enc_pts = torch.cat([torch.zeros((1, 2), dtype=dt, device=dev), xy4], dim=0)
+            encoding0 = self.posenc(enc_pts[None])
+            c2w_sync = se3_inverse(sync_abspose)
+            origins, directions = get_world_rays(
+                xy4[None, None], c2w_sync[:, :, None], intrinsics[:, :, None])
+            plucker = torch.cat([directions, torch.cross(origins, directions, dim=-1)], dim=-1)
+            feat4 = resize_bilinear(feat.reshape(b * v, hd, wd, d), (h4, w4))
+            desc0 = torch.cat([feat4.reshape(b, v, h4 * w4, d), plucker], dim=-1)
+            desc0 = self.conv_proj(desc0.reshape(b * v, h4, w4, d + 6)).reshape(b * v, h4 * w4, dp)
+            desc0 = torch.cat([self.pose_cls_token.expand(b * v, 1, dp), desc0], dim=1)
+            for blk in self._blocks("pose_transformers"):
+                desc0 = remat(blk, desc0, encoding0, enabled=cfg.remat)
+            desc0 = desc0[:, 1:].reshape(b, v, h4 * w4, dp)
 
-        rgb_feat = desc0 + get_2d_sincos_pos_embed(dp, h4, w4).to(dev)[None, None]
-        rgb_feat = torch.cat([self.pose_token.expand(b, v, 1, dp), rgb_feat], dim=-2)
-        n_tok = rgb_feat.shape[-2]
-        for i in range(cfg.n_attn_layers):
-            rf = remat(getattr(self, f"pose_self_attn_{i}"), rgb_feat.reshape(b * v, n_tok, dp),
-                       enabled=cfg.remat)
-            rgb_feat = rf.reshape(b, v, n_tok, dp)
-            if v > 1:
-                cross_ctx = torch.stack([
-                    torch.cat([rgb_feat[:, k + 1:], rgb_feat[:, :k]], dim=1).reshape(b, -1, dp)
-                    for k in range(1, v)
-                ], dim=1)
-                o = rgb_feat[:, 1:].reshape(b * (v - 1), n_tok, dp)
-                c = cross_ctx.reshape(b * (v - 1), (v - 1) * n_tok, dp)
-                o, _ = remat(getattr(self, f"pose_cross_attn_{i}"), o, c, update_x1=False,
-                             enabled=cfg.remat)
-                rgb_feat = torch.cat([rgb_feat[:, :1], o.reshape(b, v - 1, n_tok, dp)], dim=1)
-        rgb_feat = rgb_feat[:, :, 0]
+            rgb_feat = desc0 + get_2d_sincos_pos_embed(dp, h4, w4).to(dev)[None, None]
+            rgb_feat = torch.cat([self.pose_token.expand(b, v, 1, dp), rgb_feat], dim=-2)
+            n_tok = rgb_feat.shape[-2]
+            for i in range(cfg.n_attn_layers):
+                rf = remat(getattr(self, f"pose_self_attn_{i}"),
+                           rgb_feat.reshape(b * v, n_tok, dp), enabled=cfg.remat)
+                rgb_feat = rf.reshape(b, v, n_tok, dp)
+                if v > 1:
+                    cross_ctx = torch.stack([
+                        torch.cat([rgb_feat[:, k + 1:], rgb_feat[:, :k]], dim=1).reshape(b, -1, dp)
+                        for k in range(1, v)
+                    ], dim=1)
+                    o = rgb_feat[:, 1:].reshape(b * (v - 1), n_tok, dp)
+                    c = cross_ctx.reshape(b * (v - 1), (v - 1) * n_tok, dp)
+                    o, _ = remat(getattr(self, f"pose_cross_attn_{i}"), o, c, update_x1=False,
+                                 enabled=cfg.remat)
+                    rgb_feat = torch.cat([rgb_feat[:, :1], o.reshape(b, v - 1, n_tok, dp)], dim=1)
+            rgb_feat = rgb_feat[:, :, 0]
 
-        raw_rot = matrix_to_rotation_6d(sync_abspose[:, :, :3, :3])
-        raw_trans = sync_abspose[:, :, :3, 3]
-        pred_pose_enc = torch.cat([raw_rot, raw_trans], dim=-1)
-        trunk = rgb_feat + self.embed_pose(pred_pose_enc)
-        for blk in self._blocks("pose_trunk"):
-            trunk = remat(blk, trunk, enabled=cfg.remat)
-        delta_pose = self.pose_branch(trunk)[..., :9]
-        pred_pose = pred_pose_enc[:, 1:] + delta_pose[:, 1:] * self.pose_gamma
-        pred_concat = torch.cat([pred_pose_enc[:, :1], pred_pose], dim=1)
-        refined = torch.zeros((b, v, 4, 4), dtype=dt, device=dev)
-        refined[:, :, :3, :3] = rotation_6d_to_matrix(pred_concat[..., :6])
-        refined[:, :, :3, 3] = pred_concat[..., 6:9]
-        refined[:, :, 3, 3] = 1.0
+            raw_rot = matrix_to_rotation_6d(sync_abspose[:, :, :3, :3])
+            raw_trans = sync_abspose[:, :, :3, 3]
+            pred_pose_enc = torch.cat([raw_rot, raw_trans], dim=-1)
+            trunk = rgb_feat + self.embed_pose(pred_pose_enc)
+            for blk in self._blocks("pose_trunk"):
+                trunk = remat(blk, trunk, enabled=cfg.remat)
+            delta_pose = self.pose_branch(trunk)[..., :9]
+            pred_pose = pred_pose_enc[:, 1:] + delta_pose[:, 1:] * self.pose_gamma
+            pred_concat = torch.cat([pred_pose_enc[:, :1], pred_pose], dim=1)
+            refined = torch.zeros((b, v, 4, 4), dtype=dt, device=dev)
+            refined[:, :, :3, :3] = rotation_6d_to_matrix(pred_concat[..., :6])
+            refined[:, :, :3, 3] = pred_concat[..., 6:9]
+            refined[:, :, 3, 3] = 1.0
 
         # ---- gaussians on the first and last context view ----
         sel = [0, v - 1]
@@ -379,30 +384,35 @@ class PoseFreeEncoder(nn.Module):
         def to_vb(x):
             return x.transpose(0, 1).reshape(vs * b, *x.shape[2:])
 
-        densities, raw_gaussians = remat(
-            self.depth_predictor,
-            per_view_depth_features[:, sel], intrinsics[:, sel], refined[:, sel],
-            near[:, sel], far[:, sel], to_vb(images[:, sel]),
-            to_vb((1.0 / depth)[:, sel][..., None]),
-            to_vb(mono_cue_bv.reshape(b, v, h4, w4, dc)[:, sel]),
-            enabled=cfg.remat_policy == "coarse",
-        )
-        raw_gaussians = raw_gaussians.reshape(b, vs, h * w, cfg.num_surfaces, adapter.d_in + 2)
-        offset_xy = torch.sigmoid(raw_gaussians[..., :2])
-        pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=dt, device=dev)
-        xy_ray = xy_grid.reshape(h * w, 2)[None, None, :, None, :] + (offset_xy - 0.5) * pixel_size
-        c2w_refined = se3_inverse(refined)
-        depths_sel = depth[:, sel].reshape(b, vs, h * w)
-        opacities = map_pdf_to_opacity(densities[..., 0], global_step, cfg) / cfg.gaussians_per_pixel
-        means, covs, harmonics, opac, _, _ = adapt_gaussians(
-            adapter, c2w_refined[:, sel][:, :, None], intrinsics[:, sel][:, :, None],
-            xy_ray[..., 0, :], depths_sel, opacities, raw_gaussians[..., 0, 2:], (h, w))
-        gaussians = Gaussians(
-            means=means.reshape(b, vs * h * w, 3),
-            covariances=covs.reshape(b, vs * h * w, 3, 3),
-            harmonics=harmonics.reshape(b, vs * h * w, 3, adapter.d_sh),
-            opacities=opac.reshape(b, vs * h * w),
-        )
+        with span("pf3.encoder.costvolume"):
+            densities, raw_gaussians = remat(
+                self.depth_predictor,
+                per_view_depth_features[:, sel], intrinsics[:, sel], refined[:, sel],
+                near[:, sel], far[:, sel], to_vb(images[:, sel]),
+                to_vb((1.0 / depth)[:, sel][..., None]),
+                to_vb(mono_cue_bv.reshape(b, v, h4, w4, dc)[:, sel]),
+                enabled=cfg.remat_policy == "coarse",
+            )
+        with span("pf3.encoder.adapter"):
+            raw_gaussians = raw_gaussians.reshape(b, vs, h * w, cfg.num_surfaces,
+                                                  adapter.d_in + 2)
+            offset_xy = torch.sigmoid(raw_gaussians[..., :2])
+            pixel_size = torch.tensor([1.0 / w, 1.0 / h], dtype=dt, device=dev)
+            xy_ray = (xy_grid.reshape(h * w, 2)[None, None, :, None, :]
+                      + (offset_xy - 0.5) * pixel_size)
+            c2w_refined = se3_inverse(refined)
+            depths_sel = depth[:, sel].reshape(b, vs, h * w)
+            opacities = (map_pdf_to_opacity(densities[..., 0], global_step, cfg)
+                         / cfg.gaussians_per_pixel)
+            means, covs, harmonics, opac, _, _ = adapt_gaussians(
+                adapter, c2w_refined[:, sel][:, :, None], intrinsics[:, sel][:, :, None],
+                xy_ray[..., 0, :], depths_sel, opacities, raw_gaussians[..., 0, 2:], (h, w))
+            gaussians = Gaussians(
+                means=means.reshape(b, vs * h * w, 3),
+                covariances=covs.reshape(b, vs * h * w, 3, 3),
+                harmonics=harmonics.reshape(b, vs * h * w, 3, adapter.d_sh),
+                opacities=opac.reshape(b, vs * h * w),
+            )
         return EncoderOutput(
             gaussians=gaussians, pairwise_poses=rel_poses, sync_poses=sync_abspose,
             refined_poses=refined, depths=depth, xyz=xyz, correspondences=corr,

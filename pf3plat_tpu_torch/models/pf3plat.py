@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import count, span, stage, tracing
 from .backbones.lightglue import LightGlue
 from .backbones.matching import match_context_views
 from .backbones.superpoint import SuperPoint
@@ -72,9 +73,14 @@ class PF3plat(nn.Module):
         """Frozen stage: monocular depth + features + correspondences."""
         b, v, h, w, _ = images.shape
         with torch.no_grad(), self._frozen_precision():
-            out = self.unidepth(images.reshape(b * v, h, w, 3), intrinsics.reshape(b * v, 3, 3))
+            with span("pf3.perceive.unidepth"):
+                out = self.unidepth(images.reshape(b * v, h, w, 3),
+                                    intrinsics.reshape(b * v, 3, 3))
             corr = match_context_views(self.superpoint, self.lightglue, images,
                                        max_matches=self.cfg.max_matches)
+        if tracing():
+            count("matches.valid", corr.valid.sum())
+            count("matches.slots", corr.valid.numel())
         depth = out.depth.float().reshape(b, v, h, w)
         feats = out.features.float()
         feats = feats.reshape(b, v, *feats.shape[1:])
@@ -114,23 +120,22 @@ class PF3plat(nn.Module):
         mesh=None,
     ) -> tuple[EncoderOutput, Optional[DecoderOutput]]:
         """`timer`, if given, is called with a stage name ("perceive",
-        "encoder", "decoder") as each stage ends. `mesh` (`parallel.Mesh`)
-        is handed to the decoder's renders."""
-        images, intrinsics, near, far = (
-            t.to(self.device, torch.float32) for t in (images, intrinsics, near, far))
-        h, w = images.shape[2:4]
-        frozen, corr = self.perceive(images, intrinsics)
-        if timer:
-            timer("perceive")
-        enc = self.encoder(images, intrinsics, near, far, frozen, corr, global_step,
-                           ransac_noise=ransac_noise, generator=generator)
-        if timer:
-            timer("encoder")
-        out = None
-        if render_views:
-            c2w = torch.linalg.inv(enc.refined_poses)
-            out = decode(self.cfg.decoder, enc.gaussians, c2w, intrinsics, near, far,
-                         (h, w), depth_mode=depth_mode, mesh=mesh)
-            if timer:
-                timer("decoder")
+        "encoder", "decoder") as each stage ends (`utils.profiling.stage`).
+        `mesh` (`parallel.Mesh`) is handed to the decoder's renders."""
+        with span("pf3.forward"):
+            count("forwards", 1)
+            images, intrinsics, near, far = (
+                t.to(self.device, torch.float32) for t in (images, intrinsics, near, far))
+            h, w = images.shape[2:4]
+            with stage("perceive", timer):
+                frozen, corr = self.perceive(images, intrinsics)
+            with stage("encoder", timer):
+                enc = self.encoder(images, intrinsics, near, far, frozen, corr, global_step,
+                                   ransac_noise=ransac_noise, generator=generator)
+            out = None
+            if render_views:
+                with stage("decoder", timer):
+                    c2w = torch.linalg.inv(enc.refined_poses)
+                    out = decode(self.cfg.decoder, enc.gaussians, c2w, intrinsics, near, far,
+                                 (h, w), depth_mode=depth_mode, mesh=mesh)
         return enc, out

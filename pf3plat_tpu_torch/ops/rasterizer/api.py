@@ -27,6 +27,7 @@ import torch
 
 from ...device import resolve_device
 from ...geometry.projection import se3_inverse
+from ...utils.profiling import span
 from .binning import bin_gaussians, bin_gaussians_batched
 from .pallas_impl import composite_tiles_pallas_batched
 from .project import make_camera, project_gaussians
@@ -69,25 +70,28 @@ def render(
             t.to(dev) for t in (extrinsics, intrinsics, near, far, background,
                                 means, covariances, sh, opacities)
         )
-    if scale_invariant:
-        # Put the world in a numerically friendly range: scale so near == 1.
-        scale = 1.0 / near
-        extrinsics = extrinsics.clone()
-        extrinsics[..., :3, 3] = extrinsics[..., :3, 3] * scale[:, None]
-        covariances = covariances * (scale[:, None, None, None] ** 2)
-        means = means * scale[:, None, None]
+    with span("pf3.decoder.project"):
+        if scale_invariant:
+            # Put the world in a numerically friendly range: scale so near == 1.
+            scale = 1.0 / near
+            extrinsics = extrinsics.clone()
+            extrinsics[..., :3, 3] = extrinsics[..., :3, 3] * scale[:, None]
+            covariances = covariances * (scale[:, None, None, None] ** 2)
+            means = means * scale[:, None, None]
 
-    sh_degree = int(math.isqrt(sh.shape[-1])) - 1
-    camera = make_camera(extrinsics, intrinsics, image_shape)
-    screen = project_gaussians(
-        camera, means, covariances, opacities, sh, sh_degree, config, use_sh=use_sh
-    )
+        sh_degree = int(math.isqrt(sh.shape[-1])) - 1
+        camera = make_camera(extrinsics, intrinsics, image_shape)
+        screen = project_gaussians(
+            camera, means, covariances, opacities, sh, sh_degree, config, use_sh=use_sh
+        )
     if impl == "streamed":
         return composite_streamed_batched(screen, image_shape, background, config, mesh=mesh)
     if impl == "pallas":
-        binned = bin_gaussians_batched(screen, image_shape, config)
-        return composite_tiles_pallas_batched(screen, binned, image_shape, background, config,
-                                              mesh=mesh)
+        with span("pf3.decoder.sort"):
+            binned = bin_gaussians_batched(screen, image_shape, config)
+        with span("pf3.decoder.composite"):
+            return composite_tiles_pallas_batched(screen, binned, image_shape, background,
+                                                  config, mesh=mesh)
     if impl not in ("tiled", "bruteforce"):
         raise ValueError(f"unknown rasterizer impl: {impl}")
     # Per camera, as the JAX package vmaps them: the fused sort key's depth

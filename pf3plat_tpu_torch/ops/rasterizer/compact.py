@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ...utils.profiling import count, tracing
 from . import kernels
 from .binning import (
     INT32_MAX,
@@ -232,10 +233,20 @@ def compact_candidates_cuda(cand: dict, budget: int, window: int) -> dict:
 
 
 def compact_candidates(cand: dict, budget: int, window: int) -> dict:
-    """Kernel B1 for CUDA tensors, its plain version for CPU tensors."""
+    """Kernel B1 for CUDA tensors, its plain version for CPU tensors. While
+    a profiler session records, the counters `raster.pairs_wanted` (valid
+    candidates), `raster.pairs_written` and `raster.pairs_budget` add this
+    call's counts: wanted above written is the overflow that the budget
+    drops."""
     if cand["valid"].device.type == "cpu":
-        return compact_candidates_plain(cand, budget, window)
-    return compact_candidates_cuda(cand, budget, window)
+        out = compact_candidates_plain(cand, budget, window)
+    else:
+        out = compact_candidates_cuda(cand, budget, window)
+    if tracing():
+        count("raster.pairs_wanted", out["counts"][1])
+        count("raster.pairs_written", out["counts"][0])
+        count("raster.pairs_budget", budget)
+    return out
 
 
 def compact_pairs(

@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ...parallel.collectives import gather_in_shard_order, mesh_batch, shard_rows
+from ...utils.profiling import span
 from .compact import N_FEAT
 from .streamed import (
     composite_bwd,
@@ -100,8 +101,9 @@ class ShardLocalRasterize(torch.autograd.Function):
             base, off, counts = segment_rows(starts, budget_s, config)
             tile_ids = tile_ids_full[lo:hi].to(dev)
             bg_rows = bg_rows_full[lo:hi].to(dev).contiguous()
-            img_tiles, tfin, tchk = composite_fwd(featP, base, off, counts, tile_ids, bg_rows,
-                                                  tiles_x, channels, config)
+            with span("pf3.decoder.composite"):
+                img_tiles, tfin, tchk = composite_fwd(featP, base, off, counts, tile_ids,
+                                                      bg_rows, tiles_x, channels, config)
             saved += [featP, ids_sorted, base, off, counts, tile_ids, bg_rows, tfin, tchk]
             tiles[k] = [img_tiles]
         ctx.save_for_backward(*saved)

@@ -42,6 +42,7 @@ from .compact import (
     pairs_budget,
 )
 from ...parallel.collectives import gather_in_shard_order, mesh_batch, shard_rows
+from ...utils.profiling import span
 from .types import RasterizeConfig, ScreenGaussians
 
 
@@ -111,8 +112,6 @@ def pair_sort_compacted(screen: ScreenGaussians, image_shape, config: RasterizeC
     if n_tiles_out is None:
         n_tiles_out = b * tiles_x * tiles_y
     t0 = 0 if tile_lo is None else tile_lo
-    cand = build_candidates(screen, image_shape, config, tile_lo,
-                            None if tile_lo is None else tile_lo + n_tiles_out)
     budget = pairs_budget(config, b, n) if budget_override is None else budget_override
     c = config.chunk
     n_chunks = config.tile_capacity // c + 1
@@ -121,14 +120,18 @@ def pair_sort_compacted(screen: ScreenGaussians, image_shape, config: RasterizeC
             f"pairs budget {budget} must be a chunk multiple covering one "
             f"tile window ({n_chunks * c} rows)"
         )
-    cp = compact_candidates(cand, budget, config.compact_window)
-    tile_sorted, ids_sorted, featP = _sort_pairs(
-        cp["tile"], cp["dkey"], cp["ids"], cp["feats"], cand["bits_d"]
-    )
-    starts = torch.searchsorted(
-        tile_sorted,
-        t0 + torch.arange(n_tiles_out + 1, dtype=torch.int32, device=featP.device),
-    ).to(torch.int32)
+    with span("pf3.decoder.compact"):
+        cand = build_candidates(screen, image_shape, config, tile_lo,
+                                None if tile_lo is None else tile_lo + n_tiles_out)
+        cp = compact_candidates(cand, budget, config.compact_window)
+    with span("pf3.decoder.sort"):
+        tile_sorted, ids_sorted, featP = _sort_pairs(
+            cp["tile"], cp["dkey"], cp["ids"], cp["feats"], cand["bits_d"]
+        )
+        starts = torch.searchsorted(
+            tile_sorted,
+            t0 + torch.arange(n_tiles_out + 1, dtype=torch.int32, device=featP.device),
+        ).to(torch.int32)
     return featP.contiguous(), ids_sorted, starts, tiles_x, tiles_y, cp["counts"]
 
 
@@ -557,7 +560,8 @@ def prepare_streamed(screen: ScreenGaussians, image_shape, background, config):
             screen, image_shape, config
         )
     else:
-        featP, ids_sorted, starts, tiles_x, tiles_y = pair_sort(screen, image_shape, config)
+        with span("pf3.decoder.sort"):
+            featP, ids_sorted, starts, tiles_x, tiles_y = pair_sort(screen, image_shape, config)
     num_tiles = tiles_x * tiles_y
     base, off, counts = segment_rows(starts, featP.shape[1], config)
     dev = featP.device
@@ -621,15 +625,16 @@ class StreamedRasterize(torch.autograd.Function):
                                  color=color, opacity=opacity, valid=valid)
         args, extra = prepare_streamed(screen, image_shape, background, config)
         sharded = mesh is not None and mesh.size > 1
-        if sharded:
-            img_tiles, tfin, tchk = _on_shards(
-                composite_fwd, {k: args[k] for k in ROW_ARGS},
-                {k: v for k, v in args.items() if k not in ROW_ARGS}, mesh)
-            order = None  # each shard's kernels order its own rows
-        else:
-            # B2 and B3 start the tile rows in one order, heaviest first
-            order = heaviest_first(args["counts"])
-            img_tiles, tfin, tchk = composite_fwd(**args, order=order)
+        with span("pf3.decoder.composite"):
+            if sharded:
+                img_tiles, tfin, tchk = _on_shards(
+                    composite_fwd, {k: args[k] for k in ROW_ARGS},
+                    {k: v for k, v in args.items() if k not in ROW_ARGS}, mesh)
+                order = None  # each shard's kernels order its own rows
+            else:
+                # B2 and B3 start the tile rows in one order, heaviest first
+                order = heaviest_first(args["counts"])
+                img_tiles, tfin, tchk = composite_fwd(**args, order=order)
         ctx.save_for_backward(args["featP"], extra["ids_sorted"], args["base"], args["off"],
                               args["counts"], args["tile_ids"], args["bg_rows"], tfin, tchk)
         ctx.order = order

@@ -31,6 +31,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import count, span, stage
 from .losses import LossCfg, total_loss
 
 MAX_CONSECUTIVE_ERRORS = 100
@@ -150,28 +151,28 @@ def _psnr(color: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
                                            min=1e-12))
 
 
-def _finish_step(state: TrainState, opt: Optimizer, loss, parts, color, target, timer,
-                 grad_sync) -> tuple[TrainState, dict]:
-    """The common end of both train steps: aux, backward, the optimizer
-    update in place, the next state."""
+def _aux(parts: dict, color, target) -> dict:
     aux = {k: v.detach() for k, v in parts.items()}
     aux["psnr"] = _psnr(color, target)
-    if timer:
-        timer("loss")
-    loss.backward()
-    if timer:
-        timer("backward")
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
-    if grad_sync is not None:
-        grad_sync(grads)
-    updates, opt_state = opt.update(grads, state.opt_state)
-    with torch.no_grad():
-        for p, u in zip(state.params, updates):
-            p.add_(u)
-    aux["loss"] = loss.detach()
-    aux["grad_norm"] = global_norm(grads)
-    if timer:
-        timer("optimizer")
+    return aux
+
+
+def _finish_step(state: TrainState, opt: Optimizer, loss, aux: dict, timer,
+                 grad_sync) -> tuple[TrainState, dict]:
+    """The common end of both train steps: backward, the optimizer update
+    in place, the next state."""
+    with stage("backward", timer):
+        loss.backward()
+    with stage("optimizer", timer):
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
+        if grad_sync is not None:
+            grad_sync(grads)
+        updates, opt_state = opt.update(grads, state.opt_state)
+        with torch.no_grad():
+            for p, u in zip(state.params, updates):
+                p.add_(u)
+        aux["loss"] = loss.detach()
+        aux["grad_norm"] = global_norm(grads)
     return TrainState(state.params, opt_state, state.step + 1), aux
 
 
@@ -188,29 +189,33 @@ def make_train_step(encoder, decoder_cfg, loss_cfg: LossCfg, opt: Optimizer,
     `frozen` (`FrozenInputs` of the context views) and `corr`
     (`Correspondences`); tensors are moved to the encoder's device. `aux`
     holds the loss parts, `psnr`, `loss` and `grad_norm`; `timer` is called
-    with "encoder", "decoder", "loss", "backward", "optimizer"."""
+    with "encoder", "decoder", "loss", "backward", "optimizer" as each stage
+    ends (`utils.profiling.stage`)."""
     from ..models.decoder import decode
 
     def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None,
                    grad_sync=None):
-        dev = state.params[0].device
-        ctx = batch["context"]
-        images, intrinsics, near, far = (ctx[k].to(dev, torch.float32)
-                                         for k in ("image", "intrinsics", "near", "far"))
-        target = batch["target"]["image"].to(dev, torch.float32)
-        for p in state.params:
-            p.grad = None
-        enc = encoder(images, intrinsics, near, far, batch["frozen"], batch["corr"], state.step,
-                      ransac_noise=ransac_noise, generator=generator)
-        if timer:
-            timer("encoder")
-        c2w = torch.linalg.inv(enc.refined_poses)  # (b, v, 4, 4) predicted c2w
-        out = decode(decoder_cfg, enc.gaussians, c2w, intrinsics, near, far, image_shape)
-        if timer:
-            timer("decoder")
-        loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
-                                 lpips_fn=lpips_apply)
-        return _finish_step(state, opt, loss, parts, out.color, target, timer, grad_sync)
+        with span("pf3.train_step"):
+            count("train_steps", 1)
+            dev = state.params[0].device
+            ctx = batch["context"]
+            images, intrinsics, near, far = (ctx[k].to(dev, torch.float32)
+                                             for k in ("image", "intrinsics", "near", "far"))
+            target = batch["target"]["image"].to(dev, torch.float32)
+            for p in state.params:
+                p.grad = None
+            with stage("encoder", timer):
+                enc = encoder(images, intrinsics, near, far, batch["frozen"], batch["corr"],
+                              state.step, ransac_noise=ransac_noise, generator=generator)
+            with stage("decoder", timer):
+                c2w = torch.linalg.inv(enc.refined_poses)  # (b, v, 4, 4) predicted c2w
+                out = decode(decoder_cfg, enc.gaussians, c2w, intrinsics, near, far,
+                             image_shape)
+            with stage("loss", timer):
+                loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics,
+                                         state.step, lpips_fn=lpips_apply)
+                aux = _aux(parts, out.color, target)
+            return _finish_step(state, opt, loss, aux, timer, grad_sync)
 
     return train_step
 
@@ -233,17 +238,21 @@ def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=
 
     def train_step(state: TrainState, batch, ransac_noise=None, generator=None, timer=None,
                    grad_sync=None):
-        ctx = batch["context"]
-        target = batch["target"]["image"].to(model.device, torch.float32)
-        for p in state.params:
-            p.grad = None
-        enc, out = model(ctx["image"], ctx["intrinsics"], ctx["near"], ctx["far"], state.step,
-                         ransac_noise=ransac_noise, generator=generator, timer=timer,
-                         mesh=mesh)
-        lpips_fn = model.lpips_apply if loss_cfg.lpips_weight > 0.0 else None
-        intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
-        loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics, state.step,
-                                 lpips_fn=lpips_fn)
-        return _finish_step(state, opt, loss, parts, out.color, target, timer, grad_sync)
+        with span("pf3.train_step"):
+            count("train_steps", 1)
+            ctx = batch["context"]
+            target = batch["target"]["image"].to(model.device, torch.float32)
+            for p in state.params:
+                p.grad = None
+            enc, out = model(ctx["image"], ctx["intrinsics"], ctx["near"], ctx["far"],
+                             state.step, ransac_noise=ransac_noise, generator=generator,
+                             timer=timer, mesh=mesh)
+            lpips_fn = model.lpips_apply if loss_cfg.lpips_weight > 0.0 else None
+            with stage("loss", timer):
+                intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
+                loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics,
+                                         state.step, lpips_fn=lpips_fn)
+                aux = _aux(parts, out.color, target)
+            return _finish_step(state, opt, loss, aux, timer, grad_sync)
 
     return train_step

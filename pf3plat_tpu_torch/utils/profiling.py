@@ -1,43 +1,209 @@
-"""Device profiling: torch.profiler traces + per-op breakdown + busy share.
+"""Device profiling: torch.profiler traces, the port's spans and counters,
+per-op breakdown and busy share.
 
-Port of `pf3plat_tpu/utils/profiling.py` on `torch.profiler`:
+Port of `pf3plat_tpu/utils/profiling.py` on `torch.profiler`, with the
+port's own instrumentation:
 
   * `trace(dir)` — context manager around `torch.profiler.profile` (CPU and,
     where there is a card, CUDA activity); the block runs inside a
     `record_function(window)` range and the Chrome trace is written to
     `dir/*.pt.trace.json` on exit;
+  * `span(name)` / `stage(name, timer)` — named ranges of the port's stages
+    (`pf3.forward`, `pf3.perceive.lightglue`, ...), recorded into the
+    session's trace beside the kernels they launch while a profiler
+    session records, and nothing but a flag check otherwise. `stage` also
+    calls a stage `timer` callback as the stage ends;
+  * `count(name, value)` — counters (valid matches, rasterizer pairs)
+    summed on the device while a session records and written, as one JSON
+    object, into the trace's metadata under `pf3plat_counters` after each
+    outermost `pf3.forward` or `pf3.train_step` range closes;
   * `device_op_breakdown(dir)` — parse the newest trace in a directory into
     per-op device-time totals, longest first;
   * `device_busy(dir)` — the union of the device's kernel, copy and memset
-    intervals (busy µs) against the window's wall µs: the idle share;
-  * `raster_traffic_model(...)` — analytic bytes/ray accounting for the
-    rasterizer pipeline, the roofline sanity check for kernel work.
+    intervals (busy µs) against the window's wall µs: the idle share.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import contextlib
 import functools
 import gzip
 import json
 import os
+import threading
 import time
 from collections import Counter, defaultdict
 from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
 # Chrome-trace categories of the device's own activity (Kineto).
 DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "pf3plat_trace_window"
+COUNTERS = "pf3plat_counters"  # the trace metadata key of the counters
+# The ranges of one request or step: the counters are folded after the
+# outermost of them closes on its thread.
+OUTER = ("pf3.forward", "pf3.train_step")
+NULL = contextlib.nullcontext()
+
+
+def tracing() -> bool:
+    """Whether a torch.profiler session records (a Python flag that torch
+    sets as a session starts and clears as it stops). Call sites guard the
+    work of a counter's value with it."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+class _Tracer:
+    """The counters' totals since the current profiler session started
+    (device tensors or ints, summed without a host sync) and each thread's
+    depth of `OUTER` ranges."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.local = threading.local()
+        self.totals: dict = {}
+        self.hooked = False
+
+    def reset(self) -> None:
+        with self.lock:
+            self.totals = {}
+
+    def _hook(self) -> None:
+        """Wrap torch's hook as a profiler session starts so that it first
+        zeroes the totals: they count that session alone. Installed with
+        the first count, inside the first session that counts."""
+        self.hooked = True
+        start = getattr(_autograd_profiler, "_run_on_profiler_start", None)
+        if start is None:
+            return
+
+        @functools.wraps(start)
+        def on_start(*args, **kwargs):
+            self.reset()
+            return start(*args, **kwargs)
+
+        _autograd_profiler._run_on_profiler_start = on_start
+
+    def add(self, name: str, value) -> None:
+        with self.lock:
+            if not self.hooked:
+                self._hook()
+            prev = self.totals.get(name, 0)
+            if isinstance(value, torch.Tensor):
+                value = value.detach().to(torch.int64)
+                if isinstance(prev, torch.Tensor) and prev.device != value.device:
+                    value = value.to(prev.device, non_blocking=True)
+            self.totals[name] = prev + value
+
+    def fold(self) -> None:
+        """Write the totals into the session's metadata: one transfer of
+        every device total to the host."""
+        with self.lock:
+            totals = dict(self.totals)
+        if not totals or not tracing():
+            return
+        names = sorted(totals)
+        on_device = [k for k in names if isinstance(totals[k], torch.Tensor)]
+        if on_device:
+            home = totals[on_device[0]].device
+            values = torch.stack([totals[k].to(home).reshape(()) for k in on_device]).tolist()
+            totals.update(zip(on_device, values))
+        torch.autograd._add_metadata_json(
+            COUNTERS, json.dumps({k: int(totals[k]) for k in names}))
+
+
+_TRACER = _Tracer()
+
+
+class _Range:
+    """The profiler range `name`, opened on entry. After the outermost
+    `OUTER` range of a thread closes, the counters are folded, outside
+    every range."""
+
+    __slots__ = ("name", "range", "outer")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.range = None
+        self.outer = name in OUTER
+
+    def __enter__(self):
+        if self.outer:
+            local = _TRACER.local
+            local.depth = getattr(local, "depth", 0) + 1
+        self.range = torch.profiler.record_function(self.name)
+        self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self.range.__exit__(*exc)
+        if self.outer:
+            local = _TRACER.local
+            local.depth -= 1
+            if local.depth == 0 and exc[0] is None:
+                _TRACER.fold()
+        return False
+
+
+def span(name: str):
+    """The profiler range `name` while a profiler session records; the
+    shared null context `NULL` otherwise, at the cost of a flag check."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return NULL
+    return _Range(name)
+
+
+class _Stage:
+    __slots__ = ("name", "timer", "range")
+
+    def __init__(self, name: str, timer):
+        self.name, self.timer, self.range = name, timer, None
+
+    def __enter__(self):
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = _Range("pf3." + self.name)
+            self.range.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            if exc[0] is None and self.timer:
+                self.timer(self.name)
+        finally:
+            if self.range is not None:
+                self.range.__exit__(*exc)
+        return False
+
+
+def stage(name: str, timer=None):
+    """The span `pf3.<name>` of one of the stages a `timer` callback names
+    ("perceive", "encoder", "decoder", "loss", "backward", "optimizer"):
+    its exit calls `timer(name)`, inside the range, where the stage ends.
+    `NULL` without a timer while no session records."""
+    if not timer and not _autograd_profiler._is_profiler_enabled:
+        return NULL
+    return _Stage(name, timer)
+
+
+def count(name: str, value) -> None:
+    """Add `value` (a device scalar or an int) to the counter `name` while
+    a profiler session records; nothing otherwise. A value that takes work
+    to compute is guarded by `tracing()` at its call site."""
+    if _autograd_profiler._is_profiler_enabled:
+        _TRACER.add(name, value)
 
 
 @contextmanager
 def trace(log_dir: Path | str, window: str = WINDOW):
     """Capture a torch.profiler trace of the block into `log_dir`; yields
     the profiler. The block is recorded as the user range `window`, which
-    `device_busy` and `device_op_breakdown` can restrict themselves to."""
-    import torch
+    `device_busy` and `device_op_breakdown` can restrict themselves to; the
+    port's spans inside it are recorded, and its counters are written into
+    the trace's metadata (`COUNTERS`), at the latest as the block ends."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     log_dir = Path(log_dir)
@@ -50,6 +216,7 @@ def trace(log_dir: Path | str, window: str = WINDOW):
             yield prof
             if torch.cuda.is_available():
                 torch.cuda.synchronize()
+        _TRACER.fold()
     name = f"{window}_{os.getpid()}_{time.time_ns()}.pt.trace.json"
     prof.export_chrome_trace(str(log_dir / name))
 
@@ -198,99 +365,3 @@ def device_busy(log_dir: Path | str, window: Optional[str] = None) -> dict:
             "device_events": len(intervals),
             "launch_lead_min_us": min(lead for lead, _ in leads) if leads else None,
             "negative_leads": len(negative), "negative_lead_us": sum(negative)}
-
-
-def format_breakdown(rows: list[dict], top: int = 25) -> str:
-    total = sum(r["total_us"] for r in rows) or 1.0
-    lines = [f"{'us':>12} {'%':>6} {'n':>6}  name"]
-    for r in rows[:top]:
-        lines.append(
-            f"{r['total_us']:12.1f} {100 * r['total_us'] / total:6.2f} "
-            f"{r['count']:6d}  {r['name'][:90]}"
-        )
-    return "\n".join(lines)
-
-
-@dataclasses.dataclass(frozen=True)
-class RasterTraffic:
-    """Per-stage device-memory byte estimates for one fwd+bwd rasterizer
-    step."""
-
-    sort_bytes: int
-    gather_bytes: int
-    kernel_fwd_bytes: int
-    kernel_bwd_bytes: int
-    scatter_bytes: int
-    rays: int
-
-    @property
-    def total_bytes(self) -> int:
-        return (
-            self.sort_bytes + self.gather_bytes + self.kernel_fwd_bytes
-            + self.kernel_bwd_bytes + self.scatter_bytes
-        )
-
-    @property
-    def bytes_per_ray(self) -> float:
-        return self.total_bytes / max(self.rays, 1)
-
-    def roofline_ms(self, hbm_gbps: float = 3350.0) -> float:
-        """Bandwidth-bound lower bound for the step (H100 SXM: 3.35 TB/s)."""
-        return self.total_bytes / (hbm_gbps * 1e9) * 1e3
-
-    def as_dict(self) -> dict:
-        return {
-            "sort_bytes": self.sort_bytes,
-            "gather_bytes": self.gather_bytes,
-            "kernel_fwd_bytes": self.kernel_fwd_bytes,
-            "kernel_bwd_bytes": self.kernel_bwd_bytes,
-            "scatter_bytes": self.scatter_bytes,
-            "total_bytes": self.total_bytes,
-            "bytes_per_ray": self.bytes_per_ray,
-            "roofline_ms_at_3350GBps": self.roofline_ms(),
-        }
-
-
-def raster_traffic_model(
-    config,
-    image_shape: tuple[int, int],
-    cameras: int,
-    gaussians_per_camera: int,
-    channels: int = 3,
-    sort_passes: int = 10,
-) -> RasterTraffic:
-    """Analytic device-memory traffic of the binned table pipeline
-    (fwd+bwd), the JAX package's model.
-
-    `sort_passes`: round trips a comparison sort makes over the (key, value)
-    pairs — log2(n)-ish. Use this model to sanity-check measured stage
-    times against the bandwidth bound, not as a precise simulator.
-    """
-    h, w = image_shape
-    ts = config.tile_size
-    tiles = -(-h // ts) * (-(-w // ts))
-    rows = cameras * tiles
-    cap = config.tile_capacity
-    p = ts * ts
-    f_dim = 6 + channels
-    pairs = cameras * gaussians_per_camera * config.max_dup
-    keys = 1 if config.fused_sort_key else 2
-
-    sort_bytes = pairs * 4 * (keys + 1) * 2 * sort_passes  # rd+wr per pass
-    gather_bytes = rows * cap * f_dim * 4 * 2  # read src + write table
-    # fwd: table in, image + t_final + per-chunk T checkpoints out
-    n_chunks = cap // config.chunk
-    kernel_fwd = rows * (f_dim * cap + (channels + 1 + n_chunks) * p) * 4
-    # bwd: table + checkpoints + cotangents in, dtable out
-    kernel_bwd = rows * (
-        f_dim * cap + (n_chunks + channels + 2) * p + f_dim * cap
-    ) * 4
-    scatter_bytes = rows * cap * f_dim * 4 * 3  # read grads, rd+wr dest
-    return RasterTraffic(
-        sort_bytes=sort_bytes,
-        gather_bytes=gather_bytes,
-        kernel_fwd_bytes=kernel_fwd,
-        kernel_bwd_bytes=kernel_bwd,
-        scatter_bytes=scatter_bytes,
-        rays=cameras * h * w,
-    )
