@@ -202,8 +202,9 @@ def test_model_train_step_span_tree(model, tmp_path):
 
 
 def test_counters_in_the_metadata(model, tmp_path):
-    """One forward: its matches and B1's pairs, folded once the forward's
-    range closed; a second session counts from zero."""
+    """One forward: its matches, LightGlue's calls (one a view pair, each
+    on the stacked sides) and B1's pairs, folded once the forward's range
+    closed; a second session counts from zero."""
     got = []
 
     def run():
@@ -214,6 +215,8 @@ def test_counters_in_the_metadata(model, tmp_path):
         counters = _traced(tmp_path / str(k), run)[profiling.COUNTERS]
         assert counters["forwards"] == 1
         assert counters["matches.slots"] == B * V * (V - 1) // 2 * TOP["max_matches"]
+        assert counters["lightglue.calls"] == B * V * (V - 1) // 2
+        assert counters["lightglue.stacked_calls"] == counters["lightglue.calls"]
         assert 0 <= counters["matches.valid"] <= counters["matches.slots"]
         assert counters["raster.pairs_budget"] > 0
         assert 0 < counters["raster.pairs_written"] <= counters["raster.pairs_wanted"]
