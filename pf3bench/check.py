@@ -27,14 +27,11 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from . import inputs
-from .reference.models.backbones.unidepth import UniDepthCfg
-from .reference.models.decoder import DecoderCfg, decode
-from .reference.models.encoder import Correspondences, EncoderCfg, FrozenInputs
-from .reference.models.gaussian_adapter import GaussianAdapterCfg
-from .reference.models.pf3plat import PF3plat, PF3platCfg
+from . import inputs, spec
+from .reference.models.decoder import decode
+from .reference.models.encoder import Correspondences, FrozenInputs
+from .reference.models.pf3plat import PF3plat
 from .reference.models.types import Gaussians
-from .reference.ops.rasterizer.types import RasterizeConfig
 from .reference.precision import reference_precision
 from .reference.training.losses import LossCfg, total_loss
 from .reference.training.train import (
@@ -43,7 +40,7 @@ from .reference.training.train import (
 # ---- configuration ------------------------------------------------------------
 
 
-def _fill(cls, tree: dict):
+def fill(cls, tree: dict):
     """`cls` from the fields of `tree` that it has, nested dataclasses and
     tuples built as the program's config loader builds them."""
     kwargs = {}
@@ -54,41 +51,18 @@ def _fill(cls, tree: dict):
         default = getattr(cls(), f.name) if f.default is not dataclasses.MISSING or \
             f.default_factory is not dataclasses.MISSING else None
         if dataclasses.is_dataclass(default) and isinstance(value, dict):
-            value = _fill(type(default), value)
+            value = fill(type(default), value)
         elif isinstance(value, list):
             value = tuple(value)
         kwargs[f.name] = value
     return cls(**kwargs)
 
 
-def model_cfg(tree: dict) -> PF3platCfg:
-    """The reference's model configuration from a configuration file's
-    `config` tree (the keys of the program's YAML configs)."""
-    model = tree.get("model", {})
-    encoder = dict(tree.get("encoder", {}))
-    adapter = _fill(GaussianAdapterCfg, encoder.pop("gaussian_adapter", {}))
-    decoder = dict(tree.get("decoder", {}))
-    raster = decoder.pop("raster", None)
-    dec = _fill(DecoderCfg, decoder)
-    if raster is not None:
-        dec = dataclasses.replace(dec, raster=_fill(RasterizeConfig, raster))
-    return PF3platCfg(
-        encoder=dataclasses.replace(_fill(EncoderCfg, encoder), gaussian_adapter=adapter),
-        decoder=dec,
-        unidepth=UniDepthCfg.tiny_test() if model.get("tiny_backbones") else UniDepthCfg(),
-        max_keypoints=model.get("max_keypoints", 1024),
-        max_matches=model.get("max_matches", 512),
-        lightglue_layers=model.get("lightglue_layers", 9),
-        frozen_matmul_precision=model.get("frozen_matmul_precision", "bfloat16"),
-    )
-
-
 def build_reference(tree: dict, device) -> PF3plat:
-    """The reference model with its own default initialisation from a fixed
-    seed (only the statistics of that draw are used: `inputs.leaf_statistics`)."""
-    with torch.random.fork_rng(devices=[] if torch.device(device).type == "cpu" else None):
-        torch.manual_seed(0)
-        return PF3plat(model_cfg(tree), device=device)
+    """PF3plat's reference (`architectures/pf3plat.py`), for PF3plat's own
+    loops."""
+    arch = spec.load_module(spec.HERE / "architectures" / "pf3plat.py", "pf3bench_architecture")
+    return arch.build_reference(tree, device)
 
 
 # ---- the control's precision ----------------------------------------------------
@@ -385,7 +359,7 @@ def control_record(model: PF3plat, req: dict, answer, device,
 
 
 def train_cfgs(tree: dict) -> tuple[LossCfg, OptimizerCfg]:
-    return _fill(LossCfg, tree.get("loss", {})), _fill(OptimizerCfg, tree.get("optimizer", {}))
+    return fill(LossCfg, tree.get("loss", {})), fill(OptimizerCfg, tree.get("optimizer", {}))
 
 
 def reference_steps(model: PF3plat, steps: list[dict], tree: dict, seed: int, device,

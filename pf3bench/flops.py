@@ -116,13 +116,14 @@ def train_flops(ref, tree: dict, traffic: dict, device) -> dict:
 
 def count(bench: Benchmark, workload: str, device) -> dict:
     """The work of one request or step of `workload`, counted by its loop's
-    `work` over the reference."""
+    `work` over the reference of the cell's architecture."""
     cell = bench.cell(workload)
     tree = bench.config(cell["config"])["config"]
     traffic = bench.traffic(cell["traffic"])
-    ref = check.build_reference(tree, device)
+    arch = bench.architecture(cell["config"])
+    ref = arch.build_reference(tree, device)
     inputs.load_weights(ref, inputs.make_weights(inputs.leaf_statistics(ref), 0, device))
-    with check.reference_precision(), no_remat():
+    with arch.reference_precision(), no_remat():
         return bench.loop(traffic["kind"]).work(ref, tree, traffic, device)
 
 

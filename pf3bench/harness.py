@@ -6,8 +6,8 @@ mixes' loops drive with their own request.
 A loop is `loops/<kind>.py`, found by its traffic file's `kind`; it warms
 up the cell's own shapes (counted in set-up), times a window of `seconds`,
 optionally profiles a short sub-window after it, keeps what the check
-compares, and judges it (`gaps`). Only this file and the loops import the
-program.
+compares, and judges it (`gaps`). Only this file, the loops and the
+architectures (`architectures/<name>.py`) import the program.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from . import check, inputs, stats
+from . import check, inputs, spec, stats
 
 PROFILED = "pf3bench_profiled"
 
@@ -73,15 +73,18 @@ def host(x):
     return x.detach().to("cpu", copy=True)
 
 
-def leaf_statistics(tree: dict, device: torch.device, cache: Path | None) -> dict:
-    """The reference's per-leaf initialisation statistics for the
-    configuration `tree`, kept under `cache` (a fixed directory of the
-    checkout) after the first run: they depend on the configuration alone."""
-    key = hashlib.sha256(json.dumps(tree, sort_keys=True).encode()).hexdigest()[:16]
+def leaf_statistics(architecture, tree: dict, device: torch.device, cache: Path | None) -> dict:
+    """The per-leaf initialisation statistics of `architecture`'s reference
+    for the configuration `tree`, kept under `cache` (a fixed directory of
+    the checkout) after the first run: they depend on the two alone. The
+    default architecture's entry is keyed by the tree alone."""
+    name = Path(architecture.__file__).stem
+    keyed = tree if name == spec.DEFAULT_ARCHITECTURE else {"architecture": name, "config": tree}
+    key = hashlib.sha256(json.dumps(keyed, sort_keys=True).encode()).hexdigest()[:16]
     path = None if cache is None else cache / f"{key}.json"
     if path is not None and path.exists():
         return {k: (tuple(v[0]), v[1], v[2]) for k, v in json.loads(path.read_text()).items()}
-    ref = check.build_reference(tree, device)
+    ref = architecture.build_reference(tree, device)
     leaf = inputs.leaf_statistics(ref)
     del ref
     if path is not None:
@@ -93,22 +96,19 @@ def leaf_statistics(tree: dict, device: torch.device, cache: Path | None) -> dic
 
 
 class Program:
-    """The port on `device`: the configuration's model with the seed's
+    """The port on `device`: the configuration's model, as its
+    `architecture` (`architectures/<name>.py`) builds it, with the seed's
     weights, under the port's precision policy (`precision.apply_policy`,
     as every entry point sets it)."""
 
-    def __init__(self, tree: dict, device: torch.device, seed: int, cache: Path | None = None):
+    def __init__(self, architecture, tree: dict, device: torch.device, seed: int,
+                 cache: Path | None = None):
         from pf3plat_tpu_torch import precision
-        from pf3plat_tpu_torch.main import model_config
-        from pf3plat_tpu_torch.models.pf3plat import PF3plat
-        from pf3plat_tpu_torch.utils.config import load_config
 
         precision.apply_policy(device)
         self.device = device
-        self.cfg = load_config(None, overrides(tree))
-        self.stats = leaf_statistics(tree, device, cache)
-        with torch.device(device):
-            self.model = PF3plat(model_config(self.cfg), device=device)
+        self.stats = leaf_statistics(architecture, tree, device, cache)
+        self.cfg, self.model = architecture.build_program(tree, device)
         inputs.load_weights(self.model, inputs.make_weights(self.stats, seed, device))
 
     def close(self) -> None:

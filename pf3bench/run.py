@@ -2,10 +2,11 @@
 
     python3 -m pf3bench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
-Set-up builds the port's model of the cell's configuration with weights
-made on the device from the seed and warms up the cell's shapes; the window
-then runs the cell's traffic for `--seconds` through the loop its traffic
-file names (`loops/<kind>.py`); with `--trace 1` a short
+Set-up builds the port's model of the cell's configuration as the
+architecture that the configuration names builds it (`architectures/`),
+with weights made on the device from the seed, and warms up the cell's
+shapes; the window then runs the cell's traffic for `--seconds` through the
+loop its traffic file names (`loops/<kind>.py`); with `--trace 1` a short
 profiled sub-window follows. The program's state is freed and the plain
 reference (`check.py`) judges what the window produced. The last line of
 standard output is the result as one JSON object; the numbers compared are
@@ -80,7 +81,7 @@ def run_cell(bench, workload: str, seed: int, seconds: float, trace: bool, devic
     traffic = bench.traffic(cell["traffic"])
     loop = bench.loop(traffic["kind"])
     work = bench.work(workload)
-    prog = harness.Program(tree, device, seed, out / "stats")
+    prog = harness.Program(bench.architecture(cell["config"]), tree, device, seed, out / "stats")
     trace_dir = out / "traces" / workload if trace else None
     rec = loop.run(prog, traffic, seed, seconds, trace_dir, out / "data" / cell["traffic"], fault)
     setup_s = rec["setup_done"] - t0

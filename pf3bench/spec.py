@@ -2,6 +2,11 @@
 the harness finds everything that belongs to one of them by its name:
 
 - a configuration's file is `BENCHMARK.json`'s `file` (`configs/<name>.json`);
+- an architecture is `architectures/<name>.py`, named by the configuration
+  file's `architecture`, `pf3plat` when absent; it exports `build_program`
+  (the port's config and model, before the seed's weights), `build_reference`
+  (the plain float32 reference, from its own default initialisation) and
+  `reference_precision` (the context the reference runs in);
 - a traffic mix is `traffic/<traffic>.json`, data that names its loop
   (`kind`) and the loop's parameters;
 - a loop is `loops/<kind>.py`, which exports `run` (set-up, the timed
@@ -12,7 +17,8 @@ the harness finds everything that belongs to one of them by its name:
 - a metric's reader is `metrics/<metric>.py`, whose `read(run)` returns the
   metric's value or None where the run has nothing for it to read.
 
-A later cell or metric is new files here and new entries there.
+A later cell, metric or model architecture is new files here and new
+entries there.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
+DEFAULT_ARCHITECTURE = "pf3plat"
 
 
 def load_json(path: Path) -> dict:
@@ -46,6 +53,11 @@ class Benchmark:
             if c["name"] == name:
                 return load_json(self.root / c["file"])
         raise KeyError(f"BENCHMARK.json has no config {name!r}")
+
+    def architecture(self, config: str):
+        """The architecture module that the configuration `config` names."""
+        name = self.config(config).get("architecture", DEFAULT_ARCHITECTURE)
+        return load_module(self.here / "architectures" / f"{name}.py", "pf3bench_architecture")
 
     def traffic(self, name: str) -> dict:
         return load_json(self.here / "traffic" / f"{name}.json")

@@ -52,7 +52,7 @@ def write_tiny(root: Path) -> Path:
     bench = root / "pf3bench"
     for d in ("configs", "traffic", "cells"):
         (bench / d).mkdir(parents=True, exist_ok=True)
-    for d in ("metrics", "loops"):
+    for d in ("metrics", "loops", "architectures"):
         shutil.copytree(HERE / d, bench / d, dirs_exist_ok=True,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "configs" / "tiny.json").write_text(json.dumps({"name": "tiny", "config": TINY}))
