@@ -48,10 +48,34 @@ def model_config(cfg):
     )
 
 
+ARCHITECTURES = ("pf3plat", "noposplat")
+
+
 def build_model(cfg, device=None):
+    """The model `model.architecture` names: PF3plat from the `model` and
+    `encoder` sections, or NoPoSplat from the `noposplat` section; both
+    render with the `decoder` section."""
+    arch = cfg.model.architecture
+    if arch == "noposplat":
+        from .models.noposplat import NoPoSplat
+
+        return NoPoSplat(cfg.noposplat, cfg.decoder, device=device)
+    if arch != "pf3plat":
+        raise ValueError(f"model.architecture: {arch!r} is none of {ARCHITECTURES}")
     from .models.pf3plat import PF3plat
 
     return PF3plat(model_config(cfg), device=device)
+
+
+def train_step_for(cfg, model, mesh=None):
+    """The train step of the model's architecture."""
+    from .training.train import make_model_train_step, make_noposplat_train_step
+
+    if cfg.model.architecture == "noposplat":
+        if mesh is not None:
+            raise ValueError("model.architecture=noposplat trains on one device")
+        return make_noposplat_train_step(model, cfg.loss, cfg.optimizer)
+    return make_model_train_step(model, cfg.loss, cfg.optimizer, mesh=mesh)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -134,7 +158,7 @@ def run_train(cfg, device=None) -> None:
     )
     from .parallel.mesh import _world, all_reduce_mean, local_devices, world_device_count
     from .training.checkpoints import CheckpointManager, frozen_state, load_frozen_state
-    from .training.train import init_train_state, make_model_train_step
+    from .training.train import init_train_state
     from .utils.logging import LocalLogger
 
     initialize_multihost()  # from a torchrun-style environment, where there is one
@@ -170,13 +194,14 @@ def run_train(cfg, device=None) -> None:
     log("initializing model...", flush=True)
     torch.manual_seed(cfg.seed)
     model = build_model(cfg, dev)
-    log("model initialized", flush=True)
+    state = init_train_state(model)
+    log(f"model initialized: {cfg.model.architecture}, "
+        f"{sum(p.numel() for p in state.params)} trainable parameters", flush=True)
     if cfg.weights is not None:
         from .training.pretrained import load_pretrained_frozen
 
         load_pretrained_frozen(cfg.weights, model)
 
-    state = init_train_state(model)
     # rank 0 writes, every rank restores
     ckpt = CheckpointManager(cfg.checkpointing, writer=rank == 0)
     # restore_latest may warm-start from checkpointing.load, which also
@@ -196,7 +221,7 @@ def run_train(cfg, device=None) -> None:
         # silently trains against different frozen features.
         load_frozen_state(model, ckpt.restore_frozen())
 
-    step_fn = make_model_train_step(model, cfg.loss, cfg.optimizer, mesh=mesh)
+    step_fn = train_step_for(cfg, model, mesh=mesh)
     if mesh is not None:
         step_fn = shard_train_step(step_fn, mesh)
 
@@ -244,7 +269,9 @@ def run_train(cfg, device=None) -> None:
     t0 = time.time()
     batch = to_batch(first)
     step = int(state.step)
-    if cfg.train.sanity_validation and step == 0 and rank == 0:
+    # the validation panels read PF3plat's encoder outputs
+    validate = rank == 0 and cfg.model.architecture == "pf3plat"
+    if cfg.train.sanity_validation and step == 0 and validate:
         # Reference `num_sanity_val_steps` — fail fast on broken
         # visualization/render paths before hours of training.
         run_validation(cfg, model, batch, step_generator(cfg.seed, VALIDATION_STREAM, dev),
@@ -275,7 +302,7 @@ def run_train(cfg, device=None) -> None:
             )
             if logger is not None:
                 logger.log_scalars(step, a | {"seconds": dt, "world_size": world})
-        if step % cfg.train.val_check_interval == 0 and rank == 0:
+        if step % cfg.train.val_check_interval == 0 and validate:
             run_validation(cfg, model, batch,
                            step_generator(cfg.seed, VALIDATION_STREAM + step, dev), step)
         final = step >= cfg.max_steps

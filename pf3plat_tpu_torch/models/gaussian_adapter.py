@@ -54,10 +54,10 @@ def get_scale_multiplier(intrinsics, pixel_size, multiplier: float = 0.1):
     return xy.sum(dim=-1)
 
 
-def adapt_gaussians(cfg: GaussianAdapterCfg, extrinsics, intrinsics, coordinates,
-                    depths, opacities, raw_gaussians, image_shape, eps: float = 1e-8):
-    """Raw features -> (means, covariances, harmonics, opacities, scales,
-    rotations); extrinsics are c2w, leading dims broadcast."""
+def _shapes(cfg: GaussianAdapterCfg, intrinsics, depths, raw_gaussians, image_shape,
+            eps: float):
+    """(scales, unit rotations, masked SH) from the raw features: scales in
+    the configured range times the depth and the pixel's footprint."""
     h, w = image_shape
     dev, dt = raw_gaussians.device, raw_gaussians.dtype
     scales = raw_gaussians[..., 0:3]
@@ -72,6 +72,14 @@ def adapt_gaussians(cfg: GaussianAdapterCfg, extrinsics, intrinsics, coordinates
 
     rotations = rotations / (torch.linalg.norm(rotations, dim=-1, keepdim=True) + eps)
     sh = sh.unflatten(-1, (3, cfg.d_sh)) * sh_mask(cfg, dt, dev)
+    return scales, rotations, sh
+
+
+def adapt_gaussians(cfg: GaussianAdapterCfg, extrinsics, intrinsics, coordinates,
+                    depths, opacities, raw_gaussians, image_shape, eps: float = 1e-8):
+    """Raw features -> (means, covariances, harmonics, opacities, scales,
+    rotations); extrinsics are c2w, leading dims broadcast."""
+    scales, rotations, sh = _shapes(cfg, intrinsics, depths, raw_gaussians, image_shape, eps)
 
     covariances = build_covariance(scales, rotations)
     c2w_rot = extrinsics[..., :3, :3].detach()
@@ -81,3 +89,16 @@ def adapt_gaussians(cfg: GaussianAdapterCfg, extrinsics, intrinsics, coordinates
     means = origins + directions * depths[..., None]
     harmonics = rotate_sh(sh, c2w_rot[..., None, :, :], cfg.sh_degree)
     return means, covariances, harmonics, opacities, scales, rotations
+
+
+def adapt_canonical_gaussians(cfg: GaussianAdapterCfg, intrinsics, means, opacities,
+                              raw_gaussians, image_shape, eps: float = 1e-8):
+    """NoPoSplat's adapter: the means come from a centre head in the first
+    context camera's frame, which is the scene's frame, so there are no rays
+    and nothing is rotated into it. The scales follow the shared rule with
+    the centre's distance from that camera in place of the depth (no model
+    camera exists for the other views). -> (means, covariances, harmonics,
+    opacities, scales, rotations)."""
+    depths = torch.linalg.norm(means, dim=-1)
+    scales, rotations, sh = _shapes(cfg, intrinsics, depths, raw_gaussians, image_shape, eps)
+    return means, build_covariance(scales, rotations), sh, opacities, scales, rotations

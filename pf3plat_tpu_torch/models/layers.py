@@ -329,6 +329,40 @@ def apply_rotary_emb(freqs: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     return t * freqs[0] + rotate_half(t) * freqs[1]
 
 
+def gelu_exact(x: torch.Tensor) -> torch.Tensor:
+    """The erf GELU of timm's and CroCo's MLPs (not Flax's tanh `gelu`)."""
+    return F.gelu(x)
+
+
+def rope_2d_tables(positions: torch.Tensor, head_dim: int, base: float = 100.0
+                   ) -> tuple[torch.Tensor, ...]:
+    """CroCo's `RoPE2D` tables for integer token positions (..., n, 2) =
+    (row y, column x): (cos y, sin y, cos x, sin x), each (..., 1, n, head_dim
+    / 2) to broadcast over heads. Each half of a head rotates by one
+    coordinate p at the angles p * base^(-2i / (head_dim / 2)), i < head_dim
+    / 4, repeated over the half's two quarters."""
+    d = head_dim // 2
+    inv = 1.0 / base ** (torch.arange(0, d, 2, device=positions.device).float() / d)
+    out = []
+    for p in positions.unbind(-1):
+        angles = p.float()[..., None] * inv
+        angles = torch.cat([angles, angles], dim=-1).unsqueeze(-3)
+        out += [angles.cos(), angles.sin()]
+    return tuple(out)
+
+
+def apply_rope_2d(t: torch.Tensor, tables: tuple[torch.Tensor, ...]) -> torch.Tensor:
+    """t (..., heads, n, head_dim) with its first half rotated by the rows'
+    and its second by the columns' tables (`rope_2d_tables`):
+    t cos + rotate(t) sin, rotate(a, b) = (-b, a) over each half's quarters."""
+    cos_y, sin_y, cos_x, sin_x = tables
+    out = []
+    for half, cos, sin in zip(t.chunk(2, dim=-1), (cos_y, cos_x), (sin_y, sin_x)):
+        a, b = half.chunk(2, dim=-1)
+        out.append(half * cos + torch.cat([-b, a], dim=-1) * sin)
+    return torch.cat(out, dim=-1)
+
+
 class LearnableFourierPositionalEncoding(nn.Module):
     """Rotary-style learnable Fourier features (LightGlue `posenc`)."""
 

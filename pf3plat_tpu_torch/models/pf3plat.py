@@ -63,6 +63,10 @@ class PF3plat(nn.Module):
         self.to(self.device)
         self.eval()
 
+    def trainable_parameters(self) -> list[nn.Parameter]:
+        """The encoder's parameters: perception and LPIPS stay frozen."""
+        return list(self.encoder.parameters())
+
     def _frozen_precision(self):
         if self.device.type == "cuda" and self.cfg.frozen_matmul_precision == "bfloat16":
             return torch.autocast("cuda", dtype=torch.bfloat16)

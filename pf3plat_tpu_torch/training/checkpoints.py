@@ -48,13 +48,15 @@ class CheckpointCfg:
 
 
 def frozen_state(model) -> dict:
-    """The frozen modules' tensors: {module: state_dict}."""
-    return {k: getattr(model, k).state_dict() for k in FROZEN_MODULES}
+    """The frozen modules' tensors: {module: state_dict}, of those the
+    model has (NoPoSplat's LPIPS alone)."""
+    return {k: getattr(model, k).state_dict() for k in FROZEN_MODULES if hasattr(model, k)}
 
 
 def load_frozen_state(model, frozen: dict) -> None:
     for k in FROZEN_MODULES:
-        getattr(model, k).load_state_dict(frozen[k])
+        if hasattr(model, k):
+            getattr(model, k).load_state_dict(frozen[k])
 
 
 def _save_atomic(obj, path: Path) -> None:

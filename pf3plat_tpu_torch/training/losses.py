@@ -61,6 +61,20 @@ def lpips_loss(lpips_fn, pred_color: torch.Tensor, target: torch.Tensor, step: i
     return lpips_fn(p, t).mean()
 
 
+def render_loss(cfg: LossCfg, pred_color, target, step: int, lpips_fn=None
+                ) -> tuple[torch.Tensor, dict]:
+    """NoPoSplat's loss over every rendered view (no context view is
+    rendered): MSE and, from `lpips_apply_after_step` on, LPIPS, each at its
+    weight -> (sum, parts)."""
+    losses = {"mse": cfg.mse_weight * torch.mean((pred_color - target) ** 2)}
+    if lpips_fn is not None:
+        h, w, c = pred_color.shape[2:]
+        lpips = lpips_fn(pred_color.reshape(-1, h, w, c), target.reshape(-1, h, w, c)).mean() \
+            if step >= cfg.lpips_apply_after_step else pred_color.new_zeros(())
+        losses["lpips"] = cfg.lpips_weight * lpips
+    return sum(losses.values()), losses
+
+
 def project_to_other_image(xy, depth, k_i, k_j, rel, eps: float = 1e-8):
     """Reproject view-i normalized pixel coords (..., n, 2) at depth (..., n)
     into view j's normalized coords through the cam_i -> cam_j transform."""

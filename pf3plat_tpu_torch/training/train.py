@@ -1,6 +1,7 @@
 """Optimizer and train steps; port of `pf3plat_tpu/training/train.py`
 (`OptimizerCfg`, `make_optimizer`, `TrainState`, `init_train_state`,
-`make_train_step` on precomputed frozen inputs, `make_model_train_step`).
+`make_train_step` on precomputed frozen inputs, `make_model_train_step`),
+and NoPoSplat's train step (`make_noposplat_train_step`, no JAX twin).
 
 The optimizer is written out as plain functions with optax's semantics,
 not with torch's library helpers, whose edges differ:
@@ -19,8 +20,11 @@ not with torch's library helpers, whose edges differ:
     update is applied anyway. `TrainState.step` advances either way.
 
 `make_optimizer(cfg)` puts these functions behind optax's interface
-(`init(params)`, `update(grads, state)`). Trainable parameters are the
-encoder's only; the frozen modules never get gradients.
+(`init(params)`, `update(grads, state)`). The trainable parameters are
+the architecture's (`model.trainable_parameters()`): PF3plat's encoder,
+every parameter of NoPoSplat but its LPIPS VGG; the frozen modules never
+get gradients. Each update counts the leaves and elements Adam touches
+(`adam.leaves`, `adam.elements`) while a profiler session records.
 """
 
 from __future__ import annotations
@@ -31,8 +35,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..utils.profiling import count, span, stage
-from .losses import LossCfg, total_loss
+from ..utils.profiling import count, span, stage, tracing
+from .losses import LossCfg, render_loss, total_loss
 
 MAX_CONSECUTIVE_ERRORS = 100
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
@@ -87,7 +91,7 @@ class OptState(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    params: list[torch.Tensor]  # the encoder's parameters, updated in place
+    params: list[torch.Tensor]  # the trainable parameters, updated in place
     opt_state: OptState
     step: int
 
@@ -109,18 +113,21 @@ def opt_update(cfg: OptimizerCfg, schedule, grads, state: OptState
     notfinite = 0 if finite else state.notfinite_count + 1
     if not (finite or notfinite > MAX_CONSECUTIVE_ERRORS):
         return [torch.zeros_like(g) for g in grads], state._replace(notfinite_count=notfinite)
+    if tracing():
+        count("adam.leaves", len(grads))
+        count("adam.elements", sum(g.numel() for g in grads))
     g_norm = global_norm(grads)
     if not bool(g_norm < cfg.grad_clip):
         grads = [(g / g_norm) * cfg.grad_clip for g in grads]
-    count = state.count + 1
+    n = state.count + 1
     lr = schedule(state.count)
-    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(count))
-    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(count))
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(n))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(n))
     mu = [(1 - ADAM_B1) * g + ADAM_B1 * m for g, m in zip(grads, state.mu)]
     nu = [(1 - ADAM_B2) * (g * g) + ADAM_B2 * v for g, v in zip(grads, state.nu)]
     updates = [-lr * ((m / bc1) / (torch.sqrt(v / bc2 + ADAM_EPS_ROOT) + ADAM_EPS))
                for m, v in zip(mu, nu)]
-    return updates, OptState(count, mu, nu, notfinite)
+    return updates, OptState(n, mu, nu, notfinite)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,7 +149,7 @@ def make_optimizer(cfg: OptimizerCfg) -> Optimizer:
 
 
 def init_train_state(model) -> TrainState:
-    params = list(model.encoder.parameters())
+    params = list(model.trainable_parameters())
     return TrainState(params, init_opt_state(params), 0)
 
 
@@ -252,6 +259,51 @@ def make_model_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg, mesh=
                 intrinsics = ctx["intrinsics"].to(model.device, torch.float32)
                 loss, parts = total_loss(loss_cfg, out.color, target, enc, intrinsics,
                                          state.step, lpips_fn=lpips_fn)
+                aux = _aux(parts, out.color, target)
+            return _finish_step(state, opt, loss, aux, timer, grad_sync)
+
+    return train_step
+
+
+def make_noposplat_train_step(model, loss_cfg: LossCfg, opt_cfg: OptimizerCfg):
+    """NoPoSplat's train step (`models/noposplat.py`): Gaussians from the two
+    context views, renders of the targets, MSE + LPIPS, backward, update.
+
+    The batch's `context` holds the example's view stack (image (b, v, h,
+    w, 3), intrinsics, extrinsics c2w, near, far), the union of context and
+    target views in frame order: its first and last views are the context,
+    the views between them the targets (both views where there are only
+    two), rendered at their ground-truth poses in the first view's frame
+    with the context baseline scaled to 1 (`noposplat.canonical_poses`).
+    `train_step(state, batch, generator=None, timer=None, grad_sync=None)
+    -> (state, aux)` as `make_model_train_step`'s (the generator is unused:
+    the step draws nothing); `timer` is called with "vit", "crossview",
+    "heads", "decoder", "loss", "backward", "optimizer"."""
+    from ..models.noposplat import canonical_poses
+
+    opt = make_optimizer(opt_cfg)
+
+    def train_step(state: TrainState, batch, generator=None, timer=None, grad_sync=None):
+        with span("pf3.train_step"):
+            count("train_steps", 1)
+            ctx = batch["context"]
+            images, intrinsics, extrinsics, near, far = (
+                ctx[k].to(model.device, torch.float32)
+                for k in ("image", "intrinsics", "extrinsics", "near", "far"))
+            v = images.shape[1]
+            context = [0, v - 1]
+            targets = list(range(1, v - 1)) if v > 2 else context
+            poses = canonical_poses(extrinsics)
+            for p in state.params:
+                p.grad = None
+            _, out = model(images[:, context], intrinsics[:, context], poses[:, targets],
+                           intrinsics[:, targets], near[:, targets], far[:, targets],
+                           timer=timer)
+            target = images[:, targets]
+            lpips_fn = model.lpips_apply if loss_cfg.lpips_weight > 0.0 else None
+            with stage("loss", timer):
+                loss, parts = render_loss(loss_cfg, out.color, target, state.step,
+                                          lpips_fn=lpips_fn)
                 aux = _aux(parts, out.color, target)
             return _finish_step(state, opt, loss, aux, timer, grad_sync)
 

@@ -21,6 +21,7 @@ from ..data.dataset import DatasetCfg
 from ..data.view_samplers import BoundedSamplerCfg
 from ..models.decoder import DecoderCfg
 from ..models.encoder import EncoderCfg
+from ..models.noposplat import NoPoSplatCfg
 from ..training.checkpoints import CheckpointCfg
 from ..training.losses import LossCfg
 from ..training.train import OptimizerCfg
@@ -82,6 +83,9 @@ class TestCfg:
 
 @dataclasses.dataclass
 class ModelCfg:
+    # The model the entry points build: "pf3plat" (`model`'s other keys,
+    # `encoder`) or "noposplat" (the `noposplat` section).
+    architecture: str = "pf3plat"
     tiny_backbones: bool = False   # tiny ViT for smoke tests / CI
     max_keypoints: int = 1024
     max_matches: int = 512
@@ -110,6 +114,7 @@ class RootCfg:
     evaluation_index: Optional[Path] = None
     model: ModelCfg = dataclasses.field(default_factory=ModelCfg)
     encoder: EncoderCfg = dataclasses.field(default_factory=EncoderCfg)
+    noposplat: NoPoSplatCfg = dataclasses.field(default_factory=NoPoSplatCfg)
     decoder: DecoderCfg = dataclasses.field(default_factory=DecoderCfg)
     loss: LossCfg = dataclasses.field(default_factory=LossCfg)
     optimizer: OptimizerCfg = dataclasses.field(default_factory=OptimizerCfg)

@@ -158,14 +158,14 @@ def span(name: str):
 
 
 class _Stage:
-    __slots__ = ("name", "timer", "range")
+    __slots__ = ("name", "span", "timer", "range")
 
-    def __init__(self, name: str, timer):
-        self.name, self.timer, self.range = name, timer, None
+    def __init__(self, name: str, timer, span: str):
+        self.name, self.span, self.timer, self.range = name, span, timer, None
 
     def __enter__(self):
         if _autograd_profiler._is_profiler_enabled:
-            self.range = _Range("pf3." + self.name)
+            self.range = _Range(self.span)
             self.range.__enter__()
         return self
 
@@ -179,14 +179,15 @@ class _Stage:
         return False
 
 
-def stage(name: str, timer=None):
-    """The span `pf3.<name>` of one of the stages a `timer` callback names
-    ("perceive", "encoder", "decoder", "loss", "backward", "optimizer"):
-    its exit calls `timer(name)`, inside the range, where the stage ends.
-    `NULL` without a timer while no session records."""
+def stage(name: str, timer=None, prefix: str = "pf3."):
+    """The span `<prefix><name>` of one of the stages a `timer` callback
+    names ("perceive", "encoder", "decoder", "loss", "backward",
+    "optimizer"; NoPoSplat's "vit", "crossview", "heads" under the prefix
+    `pf3.nopo.`): its exit calls `timer(name)`, inside the range, where the
+    stage ends. `NULL` without a timer while no session records."""
     if not timer and not _autograd_profiler._is_profiler_enabled:
         return NULL
-    return _Stage(name, timer)
+    return _Stage(name, timer, prefix + name)
 
 
 def count(name: str, value) -> None:
