@@ -21,6 +21,7 @@ Run from the repository root on a machine with one NVIDIA H100:
                                      # index_pairs only
     python3 chip_smoke.py --mesh-spread  # build, then the sharded and
                                      # unsharded steps' run-to-run spread
+    python3 chip_smoke.py --adam     # build, then phase adam only
 
 The port's declared precision policy (`precision.apply_policy`, as every
 entry point sets it) holds for the whole run: the timing phases run under
@@ -73,6 +74,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
      attn_sweep - both kernels against their plain versions at ragged sizes
                (1 to 2,401 queries and keys around the tile sizes, n != m,
                head dims 32 and 64);
+     adam_*  - the Adam kernels (csrc/adam.cu) at PF3plat's (`pf3plat`,
+               re10k.yaml's encoder) and NoPoSplat's (`nopo`) trained leaves:
+               one update through `Optimizer.apply` against `opt_update` and
+               `p.add_` fed the kernel's norm, parameters and moments bit for
+               bit, the norm within 1e-6 of the plain one and equal on two
+               runs, host syncs an update; ms of the whole update, of each
+               kernel, of the plain version and of torch.optim.Adam
+               (fused=True) as yardstick, beside the bound (32 B an element);
   3. render_fwd_bwd - the bench scene through `render`, forward and
                backward with autograd, once per kernel backend (`streamed`,
                `pallas`) and once each in 12 x 12 tiles: ms and
@@ -2050,6 +2059,7 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None,
         per_step_launches = {k: n * mesh.size for k, n in per_step_launches.items()}
     if mesh is None:  # a mesh runs the encoder once a data shard
         per_step_launches.update(attention_per_step(model.cfg))
+    per_step_launches["adam"] = 2  # the norm pass and the update, once a step
     batch = train_batch()
     b, v, h, w = batch["context"]["image"].shape[:4]
     step_fn = make_model_train_step(model, LossCfg(), OptimizerCfg(), mesh=mesh)
@@ -2926,6 +2936,114 @@ def main_test(serve_per_request: dict | None) -> dict:
               launches_total=launches, artifacts=found))
     del rec, model
     return want
+
+
+# The Adam kernels' norm against the plain one's (float32 sums taken in
+# another order), relative.
+TOL_ADAM_NORM = 1e-6
+
+
+def adam_leaves(which: str) -> list:
+    """The trained parameters of PF3plat (`configs/re10k.yaml`'s model) or
+    of NoPoSplat at its published widths, on the card."""
+    import torch
+
+    torch.manual_seed(SEED)
+    if which == "pf3plat":
+        from pf3plat_tpu_torch.models.pf3plat import PF3plat
+
+        return list(PF3plat(model_config(), device="cuda").trainable_parameters())
+    from pf3plat_tpu_torch.models.noposplat import NoPoSplat, NoPoSplatCfg
+
+    return NoPoSplat(NoPoSplatCfg(), device="cuda").trainable_parameters()
+
+
+def check_adam(which: str) -> dict:
+    """One update of `which`'s leaves through the Adam kernels against the
+    plain version fed the kernel's norm (bit for bit), then the times."""
+    import torch
+
+    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch.training import train
+
+    params = [p.detach() for p in adam_leaves(which)]
+    elements = sum(p.numel() for p in params)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    grads = [torch.randn(p.shape, device="cuda", generator=gen) for p in params]
+    opt = train.make_optimizer(train.OptimizerCfg())
+    state = opt.init(params)
+    ref = [p.clone() for p in params]
+    plan = train._AdamPlan(params, state.mu, state.nu)
+    plan.set_grads(params, grads)
+    norms = [train.adam_norm_cuda(plan) for _ in range(2)]
+    plain_norm = float(train.global_norm(grads))
+    norm_rel = abs(float(norms[0][2]) - plain_norm) / plain_norm
+    norm_repeats = torch.equal(norms[0].view(torch.int32), norms[1].view(torch.int32))
+    state, norm = opt.apply(params, grads, state)
+    plain_state = opt.init(ref)
+    global_norm = train.global_norm
+    train.global_norm = lambda _: norm
+    try:
+        updates, plain_state = train.opt_update(opt.cfg, opt.schedule, grads, plain_state)
+    finally:
+        train.global_norm = global_norm
+    for p, u in zip(ref, updates):
+        p.add_(u)
+    del updates
+    differ = {name: sum(not torch.equal(a.view(torch.int32), b.view(torch.int32))
+                        for a, b in zip(got, want))
+              for name, got, want in (("params", params, ref), ("mu", state.mu, plain_state.mu),
+                                      ("nu", state.nu, plain_state.nu))}
+    del ref, plain_state
+    if any(differ.values()) or not norm_repeats or not norm_rel <= TOL_ADAM_NORM:
+        raise AssertionError(f"adam {which}: leaves differing from the plain version "
+                             f"{differ}; norm {float(norm)} against {plain_norm} "
+                             f"({norm_rel} > {TOL_ADAM_NORM}?), two runs equal: {norm_repeats}")
+    # the port's own syncs (torch's first warning of the debug mode has none)
+    syncs = {k: n for k, n in count_syncs(lambda: opt.apply(params, grads, state)).items()
+             if k.startswith("pf3plat_tpu_torch/")}
+    before = kernels.LAUNCHES["adam"]
+    opt.apply(params, grads, state)
+    launches = kernels.LAUNCHES["adam"] - before
+    ms = cuda_ms(lambda: opt.apply(params, grads, state), 10)
+    norm_ms = cuda_ms(lambda: train.adam_norm_cuda(plan), 10)
+    step = train.adam_step(opt.cfg, opt.schedule, state, float(norms[0][0]), False)[0]
+    update_ms = cuda_ms(lambda: train.adam_update_cuda(plan, step, opt.cfg), 10)
+
+    def plain():
+        g = train.global_norm(grads)  # the second norm _finish_step took
+        updates, _ = opt.update(grads, state)
+        for p, u in zip(params, updates):
+            p.add_(u)
+        return g
+
+    plain_ms = cuda_ms(plain, 2, warmup=1)
+    lib = [p.clone().requires_grad_() for p in params]
+    for p, g in zip(lib, grads):
+        p.grad = g
+    library = torch.optim.Adam(lib, lr=1e-4, fused=True)
+    library_ms = cuda_ms(library.step, 10)
+    del lib, library
+    bound_ms = elements * 32 / peaks()["bw"] * 1e3
+    row = dict(phase=f"adam_{which}", leaves=len(params), elements=elements,
+               leaves_without_alignment=sum(p.data_ptr() % 16 != 0 for p in params),
+               items=plan.n_items, bit_equal_to_plain=True, norm_rel_diff=norm_rel,
+               norm_two_runs_bit_equal=norm_repeats, launches_per_update=launches,
+               host_syncs_per_update=sum(syncs.values()), host_syncs=syncs, ms=ms,
+               norm_ms=norm_ms, update_ms=update_ms, bound_ms=bound_ms, bound_by="bytes",
+               roofline_pct=100 * bound_ms / ms, update_roofline_pct=(
+                   100 * elements * 28 / peaks()["bw"] * 1e3 / update_ms),
+               norm_roofline_pct=100 * elements * 4 / peaks()["bw"] * 1e3 / norm_ms,
+               plain_ms=plain_ms, library_ms=library_ms,
+               library="torch.optim.Adam(fused=True), a yardstick the port never calls")
+    emit(row)
+    del params, grads, state, plan
+    torch.cuda.empty_cache()
+    return row
+
+
+def adam_phase() -> dict:
+    return {which: check_adam(which) for which in ("pf3plat", "nopo")}
 
 
 def train_frozen() -> float:
@@ -4891,6 +5009,10 @@ def main(argv) -> int:
         fwd_ablations()
         print(smi, flush=True)
         return 0
+    if "--adam" in argv:
+        adam_phase()
+        print(smi, flush=True)
+        return 0
 
     config = PRODUCTION_CONFIG
     shape = (256, 256)
@@ -4914,6 +5036,7 @@ def main(argv) -> int:
         for tag, attn_shape in zip(("pose_serve", "vit_serve"), sorted(serve_shapes)):
             check_attention(tag, *attn_shape, backward=False)
         sweep_attention()
+    adam_phase()
 
     if "--kernels" in argv:
         return 0

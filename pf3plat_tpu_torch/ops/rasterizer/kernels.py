@@ -33,6 +33,7 @@ SOURCES = {
     "table_bwd": "table_bwd.cu",
     "attention_fwd": "attention_fwd.cu",
     "attention_bwd": "attention_bwd.cu",
+    "adam": "adam.cu",
 }
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -23,23 +23,38 @@ not with torch's library helpers, whose edges differ:
 (`init(params)`, `update(grads, state)`). The trainable parameters are
 the architecture's (`model.trainable_parameters()`): PF3plat's encoder,
 every parameter of NoPoSplat but its LPIPS VGG; the frozen modules never
-get gradients. Each update counts the leaves and elements Adam touches
-(`adam.leaves`, `adam.elements`) while a profiler session records.
+get gradients.
+
+The train steps update through `Optimizer.apply(params, grads, state)`,
+in place. On the CPU it is `opt_update` followed by `p.add_`. On the card
+it is two hand-written kernels over every leaf at once (`csrc/adam.cu`):
+a deterministic norm-and-finite pass, one host read of its [sum of
+squares, non-finite flag], the host's decision as `opt_update` makes it
+(`adam_step`), then one fused clip-and-Adam pass with `opt_update`'s
+float32 roundings; a non-finite step launches nothing more. Each applied
+update counts the leaves and elements Adam touches (`adam.leaves`,
+`adam.elements`), and one through the kernels `adam.fused_updates`, while
+a profiler session records.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from ..ops.rasterizer import kernels
 from ..utils.profiling import count, span, stage, tracing
 from .losses import LossCfg, render_loss, total_loss
 
 MAX_CONSECUTIVE_ERRORS = 100
 ADAM_B1, ADAM_B2, ADAM_EPS, ADAM_EPS_ROOT = 0.9, 0.999, 1e-8, 0.0
+# Elements of one work item of the Adam kernels: a multiple of 4, so that
+# every item starts at its leaf's 16-byte alignment.
+ADAM_CHUNK = 1 << 16
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,18 +145,184 @@ def opt_update(cfg: OptimizerCfg, schedule, grads, state: OptState
     return updates, OptState(n, mu, nu, notfinite)
 
 
+class AdamStep(NamedTuple):
+    """What the host hands the Adam kernel for one applied update."""
+    norm: np.float32            # the global norm of the gradients
+    clip: bool                  # scale by max_norm / norm first
+    lr: float
+    bc1: float                  # Adam's bias corrections at count n
+    bc2: float
+
+
+def adam_step(cfg: OptimizerCfg, schedule, state: OptState, sumsq: float, nonfinite: bool
+              ) -> tuple[AdamStep | None, OptState]:
+    """`opt_update`'s decisions from the gradients' sum of squares and
+    whether any element is not finite -> (the update to apply, or None
+    where `apply_if_finite` skips it; the next state, its moments the same
+    tensors, updated in place by the kernel)."""
+    finite = not nonfinite
+    notfinite = 0 if finite else state.notfinite_count + 1
+    if not (finite or notfinite > MAX_CONSECUTIVE_ERRORS):
+        return None, state._replace(notfinite_count=notfinite)
+    norm = np.sqrt(np.float32(sumsq))
+    n = state.count + 1
+    bc1 = float(np.float32(1) - np.float32(ADAM_B1) ** np.float32(n))
+    bc2 = float(np.float32(1) - np.float32(ADAM_B2) ** np.float32(n))
+    step = AdamStep(norm, not bool(norm < np.float32(cfg.grad_clip)), schedule(state.count),
+                    bc1, bc2)
+    return step, OptState(n, state.mu, state.nu, notfinite)
+
+
+def adam_work_list(params, mu, nu) -> np.ndarray:
+    """The Adam kernels' work list: an (items, 4) int32 array of (leaf,
+    start, length, vector length), each leaf cut in order into items of at
+    most `ADAM_CHUNK` elements. An item's first `vector length` elements
+    move in 16-byte accesses, the rest one at a time: its length rounded
+    down to a multiple of 4 where the leaf's parameter and moments are
+    16-byte aligned, else 0."""
+    rows = []
+    for leaf, ts in enumerate(zip(params, mu, nu)):
+        numel = ts[0].numel()
+        ok = all(t.data_ptr() % 16 == 0 for t in ts)
+        if numel >= 2**31:
+            raise ValueError(f"leaf {leaf}: {numel} elements, more than an int32 index")
+        for start in range(0, numel, ADAM_CHUNK):
+            length = min(ADAM_CHUNK, numel - start)
+            rows.append((leaf, start, length, length & ~3 if ok else 0))
+    return np.asarray(rows, np.int32).reshape(-1, 4)
+
+
+class _AdamPlan:
+    """What the Adam kernels keep for one set of parameters and moments,
+    which stay in place from step to step: the work list and the pointer
+    tables on the card, a pinned host table of the step's gradient
+    pointers with its device copy, and the norm pass's scratch (a partial
+    sum an item; the flag and ticket its last block rearms)."""
+
+    def __init__(self, params, mu, nu):
+        dev = params[0].device
+        if dev.type != "cuda":
+            raise ValueError(f"the Adam kernels need CUDA tensors, not {dev}")
+        for name, group in (("params", params), ("mu", mu), ("nu", nu)):
+            for p, t in zip(params, group):
+                if t.device != dev or t.dtype != torch.float32 or t.shape != p.shape \
+                        or not t.is_contiguous():
+                    raise ValueError(f"{name}: want contiguous float32 tensors on {dev} "
+                                     f"shaped as the parameters")
+        items = adam_work_list(params, mu, nu)
+        self.device = dev
+        self.n_items = len(items)
+        self.items = torch.from_numpy(items).to(dev)
+        self.tables = [torch.tensor([t.data_ptr() for t in group], dtype=torch.int64,
+                                    device=dev) for group in (params, mu, nu)]
+        self.host_grads = torch.zeros(len(params), dtype=torch.int64, pin_memory=True)
+        self.grads = torch.zeros(len(params), dtype=torch.int64, device=dev)
+        self.partials = torch.empty(self.n_items, dtype=torch.float32, device=dev)
+        self.sync = torch.zeros(2, dtype=torch.int32, device=dev)
+
+    def set_grads(self, params, grads) -> None:
+        """The step's gradient pointers to the card, one copy from pinned
+        memory (the previous update's host read has waited for the last
+        copy, so the host table is free)."""
+        dev, f32 = self.device, torch.float32
+        for p, g in zip(params, grads):
+            if g is not None and (g.dtype is not f32 or g.shape != p.shape
+                                  or not g.is_contiguous() or g.device != dev):
+                raise ValueError(f"gradients: want contiguous float32 tensors on {dev} "
+                                 f"shaped as the parameters")
+        self.host_grads.numpy()[:] = [0 if g is None else g.data_ptr() for g in grads]
+        self.grads.copy_(self.host_grads, non_blocking=True)
+
+
+def adam_norm_cuda(plan: _AdamPlan) -> torch.Tensor:
+    """The norm pass over the gradients `plan.set_grads` gave: a new (3,)
+    float32 tensor [sum of squares, 1 if any element is not finite else 0,
+    global norm]."""
+    out = torch.empty(3, dtype=torch.float32, device=plan.device)
+    ct = kernels.ctypes
+    fn = kernels.load("adam").pf3_adam_norm
+    fn.restype = ct.c_int
+    fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
+                   ct.c_void_p]
+    rc = fn(kernels.ptr(plan.items), plan.n_items, kernels.ptr(plan.grads),
+            kernels.ptr(plan.partials), kernels.ptr(plan.sync), kernels.ptr(out),
+            kernels.stream_ptr(plan.device))
+    kernels.check("adam", rc)
+    kernels.LAUNCHES["adam"] += 1
+    return out
+
+
+def adam_update_cuda(plan: _AdamPlan, step: AdamStep, cfg: OptimizerCfg) -> None:
+    """The update pass: clip, Adam and the parameter update of every leaf
+    in place, with the float32 constants torch would use for
+    `opt_update`'s Python scalars."""
+    f32 = np.float32
+    consts = (step.norm, f32(cfg.grad_clip), f32(1 - ADAM_B1), f32(ADAM_B1), f32(1 - ADAM_B2),
+              f32(ADAM_B2), f32(1) / f32(step.bc1), f32(1) / f32(step.bc2), f32(ADAM_EPS_ROOT),
+              f32(ADAM_EPS), f32(-step.lr))
+    ct = kernels.ctypes
+    fn = kernels.load("adam").pf3_adam_update
+    fn.restype = ct.c_int
+    fn.argtypes = [ct.c_void_p, ct.c_int, *[ct.c_void_p] * 4, ct.c_int,
+                   *[ct.c_float] * len(consts), ct.c_void_p]
+    params, mu, nu = plan.tables
+    rc = fn(kernels.ptr(plan.items), plan.n_items, kernels.ptr(plan.grads), kernels.ptr(params),
+            kernels.ptr(mu), kernels.ptr(nu), int(step.clip), *(float(c) for c in consts),
+            kernels.stream_ptr(plan.device))
+    kernels.check("adam", rc)
+    kernels.LAUNCHES["adam"] += 1
+
+
 @dataclasses.dataclass(frozen=True)
 class Optimizer:
     """`make_optimizer`'s result: `init` / `update` over `init_opt_state` /
-    `opt_update` with the schedule of `cfg`."""
+    `opt_update` with the schedule of `cfg`, and `apply`, the update in
+    place."""
     cfg: OptimizerCfg
     schedule: Callable[[int], float]
+    # the Adam kernels' plan of the last parameter set, by its pointers
+    _plans: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                     compare=False)
 
     def init(self, params) -> OptState:
         return init_opt_state(params)
 
     def update(self, grads, state: OptState) -> tuple[list[torch.Tensor], OptState]:
         return opt_update(self.cfg, self.schedule, grads, state)
+
+    def apply(self, params, grads, state: OptState) -> tuple[OptState, torch.Tensor]:
+        """One update of `params`, in place, from `grads` (None: a leaf
+        without a gradient, zeros) -> (the next state, the gradients'
+        global norm before clipping). CPU tensors take `opt_update` and
+        `p.add_`; CUDA tensors the Adam kernels, which update the moments
+        in place too, with one host sync."""
+        if params[0].device.type != "cpu":
+            return self._apply_cuda(params, grads, state)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+        updates, state = self.update(grads, state)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.add_(u)
+        return state, global_norm(grads)
+
+    def _apply_cuda(self, params, grads, state: OptState) -> tuple[OptState, torch.Tensor]:
+        key = (tuple(map(torch.Tensor.data_ptr, itertools.chain(params, state.mu, state.nu))),
+               tuple(map(torch.Tensor.numel, params)))
+        plan = self._plans.get(key)
+        if plan is None:
+            self._plans.clear()
+            plan = self._plans[key] = _AdamPlan(params, state.mu, state.nu)
+        plan.set_grads(params, grads)
+        out = adam_norm_cuda(plan)
+        sumsq, flag = out[:2].tolist()  # the update's one host sync
+        step, state = adam_step(self.cfg, self.schedule, state, sumsq, flag != 0.0)
+        if step is not None:
+            adam_update_cuda(plan, step, self.cfg)
+            if tracing():
+                count("adam.leaves", len(params))
+                count("adam.elements", sum(p.numel() for p in params))
+                count("adam.fused_updates", 1)
+        return state, out[2]
 
 
 def make_optimizer(cfg: OptimizerCfg) -> Optimizer:
@@ -171,15 +352,13 @@ def _finish_step(state: TrainState, opt: Optimizer, loss, aux: dict, timer,
     with stage("backward", timer):
         loss.backward()
     with stage("optimizer", timer):
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in state.params]
-        if grad_sync is not None:
+        grads = [p.grad for p in state.params]
+        if grad_sync is not None:  # the all-reduce wants a tensor for every leaf
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(state.params, grads)]
             grad_sync(grads)
-        updates, opt_state = opt.update(grads, state.opt_state)
-        with torch.no_grad():
-            for p, u in zip(state.params, updates):
-                p.add_(u)
         aux["loss"] = loss.detach()
-        aux["grad_norm"] = global_norm(grads)
+        opt_state, aux["grad_norm"] = opt.apply(state.params, grads, state.opt_state)
     return TrainState(state.params, opt_state, state.step + 1), aux
 
 
