@@ -5,22 +5,14 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --kernels  # build + kernel checks only (quick)
-    python3 chip_smoke.py --attention-ablations  # where the forward attention
-                                     # kernel's time goes (measurement builds)
-    python3 chip_smoke.py --bwd-ablations  # where kernel B3's time goes
-                                     # (measurement builds)
-    python3 chip_smoke.py --fwd-ablations  # where kernels B2's and B6's
-                                     # time goes (measurement builds)
     python3 chip_smoke.py --main     # build, one training step of record,
-                                     # then phases main_train, main_test and
-                                     # trace only
+                                     # then phases main_train and main_test
+                                     # only
     python3 chip_smoke.py --procs    # build, then phase procs_mesh only
     python3 chip_smoke.py --memory   # build, then phase memory_policy only
     python3 chip_smoke.py --precision  # build, then phase precision only
     python3 chip_smoke.py --pose     # build, then phases pose_path and
                                      # index_pairs only
-    python3 chip_smoke.py --mesh-spread  # build, then the sharded and
-                                     # unsharded steps' run-to-run spread
     python3 chip_smoke.py --adam     # build, then phase adam only
 
 The port's declared precision policy (`precision.apply_policy`, as every
@@ -30,8 +22,9 @@ shape (sharded against unsharded) run under `precision.exact()`.
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-  1. device  - GPU name and power limit (nvidia-smi), build of the nine
-               kernel libraries;
+  1. device  - GPU name and power limit (nvidia-smi), build of every
+               kernel library (`pf3plat_tpu_torch/kernels.py`) with each
+               one's registers and spills;
      env     - what the machine offers the port: Python, torch and CUDA
                versions, which of PIL, yaml, safetensors, orbax, numpy,
                scipy, triton, einops import and their versions, g++,
@@ -237,12 +230,6 @@ Phases, each printing one JSON line; any failure exits non-zero:
                this process stepping on the ranks' two rows through the same
                mesh, one checkpoint and one log written (rank 0). Per rank:
                render ms, step ms, peak bytes, launches;
-     trace   - in a child process (`--trace-child`): torch.profiler windows
-               over two warm steps of main's loop and one serving request;
-               per window device-busy ms against wall ms (the idle share)
-               and the ten operations with the most device time, traces
-               under build/traces/; fails on a window without device
-               events. `late_probe`: one short session in this process;
   8. the kernels line, the nvidia-smi line, and the final
      {"ok": true, "device": ...} line.
 
@@ -579,7 +566,7 @@ def check_b2(screen, image_shape, background, config, tag: str, regs: dict) -> d
 
     from pf3plat_tpu_torch.ops.rasterizer import streamed
 
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
 
     args, _ = streamed.prepare_streamed(screen, image_shape, background, config)
     got = streamed.composite_fwd_cuda(**args)
@@ -743,7 +730,8 @@ def check_backward(screen, image_shape, background, config, tag: str):
     image gradient from numpy seed 1. -> (B3 row, B4 row)."""
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import compact, kernels, streamed
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import compact, streamed
 
     args, extra, bwd = backward_inputs(screen, image_shape, background, config)
     rows = args["base"].shape[0]
@@ -816,7 +804,8 @@ def check_b5(screen, image_shape, background, config, tag: str) -> dict:
     B3's dP on the same inputs (the same arithmetic: TOL_B5_B3)."""
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import kernels, streamed
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import streamed
 
     args, _, bwd = backward_inputs(screen, image_shape, background, config)
     rows = args["base"].shape[0]
@@ -1065,202 +1054,6 @@ def bwd_sweep() -> dict:
     return row
 
 
-def bwd_work(bwd) -> dict:
-    """What the backward walk's data asks for, counted with the plain
-    arithmetic (`streamed._chunk_alpha`, the running log sum): in-segment
-    (pixel, pair) evaluations of the walked chunks, those that contribute
-    (alive, and alpha != 0 or unclamped), the (warp, pair) steps with at
-    least one contributing pixel among the warp's 32, and the tile rows'
-    pair counts (mean, largest)."""
-    import torch
-
-    from pf3plat_tpu_torch.ops.rasterizer import streamed
-
-    cfg = bwd["config"]
-    ck, ts = cfg.chunk, cfg.tile_size
-    px, py = streamed._pixel_centres(bwd["tile_ids"], bwd["tiles_x"], ts)
-    off, end = bwd["off"], (bwd["off"] + bwd["counts"]).to(torch.int64)
-    lane = torch.arange(ck, device=off.device)
-    evals = contrib = warp_steps = steps = 0
-    for i in range(cfg.tile_capacity // ck + 1):
-        cols = bwd["base"].to(torch.int64)[:, None] * ck + i * ck + lane[None]
-        data = bwd["featP"][:, cols]
-        j = i * ck + lane[None]
-        seg = (j >= off[:, None]) & (j < end[:, None]) & (i < bwd["nproc"])[:, None]
-        alpha, _, _, _, unclamped = streamed._chunk_alpha(data, px, py, seg, cfg)
-        t_after = bwd["tchk"][:, i, :, None] * torch.exp(
-            streamed.running_sum(torch.log1p(-alpha)))
-        live = (t_after >= cfg.transmittance_min) & seg[:, None, :]
-        c = live & ((alpha != 0) | unclamped)  # (rows, p, ck)
-        evals += int(seg.sum()) * ts * ts
-        contrib += int(c.sum())
-        warp_steps += int(c.reshape(c.shape[0], -1, 32, ck).any(dim=2).sum())
-        steps += int(seg.sum()) * ts * ts // 32
-    counts = bwd["counts"].float()
-    return dict(evaluations=evals, contributing=contrib, warp_pair_steps=steps,
-                warp_pair_steps_contributing=warp_steps, pairs_per_row_mean=float(counts.mean()),
-                pairs_per_row_max=int(counts.max()))
-
-
-BWD_ABLATIONS = ("full", "no replay", "no shuffles", "no reciprocal",
-                 "no feature copies in the loop", "no reverse sweep")
-
-
-def bwd_ablations() -> dict:
-    """Where kernel B3's time goes: measurement builds of
-    `csrc/composite_bwd.cu` that each leave one part out (`PF3_BWD_ABLATE`
-    = 1..5, composite_bwd_walk.cuh; their results are wrong and are not
-    read), timed beside the full kernel on bench.py's scene and on the
-    saturating scene, all walking the tile rows heaviest first as the
-    wrapper does, and the full kernel once more with the rows in their
-    order; with the work the two scenes ask for (`bwd_work`) and each
-    build's registers."""
-    import torch
-
-    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
-    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels, streamed
-
-    ct = kernels.ctypes
-    reports = {}
-    names = list(BWD_ABLATIONS)
-    libs = kernels.build_variants(
-        "composite_bwd", [{"PF3_BWD_ABLATE": i} for i in range(len(BWD_ABLATIONS))], reports)
-    for lib in libs:
-        lib.pf3_composite_bwd.restype = ct.c_int
-        lib.pf3_composite_bwd.argtypes = ([ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 10
-                                          + [ct.c_int] * 6 + [ct.c_float] * 4
-                                          + [ct.c_void_p] * 3)
-    shape = (256, 256)
-    scene = bench_scene("cuda")
-    sat, _ = saturating_screen("cuda")
-    times, stats = {}, {}
-    for tag, screen, cfg in (("bench", project(scene, shape, PRODUCTION_CONFIG),
-                              PRODUCTION_CONFIG),
-                             ("saturating", sat, RasterizeConfig())):
-        _, _, b = backward_inputs(screen, shape, scene["background"], cfg)
-        dP = torch.zeros((9, b["featP"].shape[1]), device="cuda")
-        dbg = torch.empty((b["base"].shape[0], b["channels"]), device="cuda")
-        heavy = streamed.heaviest_first(b["counts"])
-        runs = [(name, lib, heavy) for name, lib in zip(names, libs)]
-        in_order = torch.arange(b["base"].shape[0], dtype=torch.int32, device="cuda")
-        runs.append(("full, rows in their order", libs[0], in_order))
-        for name, lib, order in runs:
-
-            def launch(fn=lib.pf3_composite_bwd, order=order):
-                kernels.check("composite_bwd (measurement build)", fn(
-                    kernels.ptr(b["featP"]), b["featP"].shape[1], kernels.ptr(b["base"]),
-                    kernels.ptr(b["off"]), kernels.ptr(b["counts"]), kernels.ptr(b["tile_ids"]),
-                    kernels.ptr(b["nproc"]), kernels.ptr(order),
-                    kernels.ptr(b["bg_rows"]), kernels.ptr(b["tfin"]), kernels.ptr(b["tchk"]),
-                    kernels.ptr(b["g_tiles"]), b["base"].shape[0], b["channels"], b["tiles_x"],
-                    cfg.tile_size, cfg.chunk, cfg.tile_capacity // cfg.chunk + 1,
-                    cfg.alpha_clamp, cfg.alpha_min, 1.0 - cfg.alpha_clamp, cfg.transmittance_min,
-                    kernels.ptr(dP), kernels.ptr(dbg), kernels.stream_ptr(dP.device)))
-
-            times.setdefault(name, {})[tag] = cuda_ms(launch, 20)
-        stats[tag] = bwd_work(b)
-    ptxas = {name: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
-                    if "registers" in ln or "spill" in ln] for name, lib in zip(names, libs)}
-    row = dict(phase="b3_ablations", ms=times, work=stats, ptxas=ptxas)
-    emit(row)
-    return row
-
-
-FWD_ABLATIONS = ("full", "no power-test skip", "no cp.async prefetch", "no colour update")
-
-
-def fwd_ablations() -> dict:
-    """Where the forward walk's time goes: measurement builds of
-    `csrc/composite_fwd.cu` (kernel B2) and `csrc/table_fwd.cu` (kernel B6)
-    that each leave one part out (`PF3_FWD_ABLATE` = 1..3; the first two
-    compute the same results, the third wrong images, none is read), timed
-    beside the full kernel on bench.py's scene and on the saturating scene, all
-    starting the tile rows heaviest first as the wrappers do, and the full
-    kernel once more with the rows in their order; with the work the two
-    scenes ask for (`fwd_work`, `table_fwd_work`) and each build's
-    registers."""
-    import torch
-
-    from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
-    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels, streamed
-
-    ct = kernels.ctypes
-    reports = {}
-    libs = {
-        "composite_fwd": kernels.build_variants(
-            "composite_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))],
-            reports),
-        "table_fwd": kernels.build_variants(
-            "table_fwd", [{"PF3_FWD_ABLATE": i} for i in range(len(FWD_ABLATIONS))], reports),
-    }
-    for lib in libs["composite_fwd"]:
-        lib.pf3_composite_fwd.restype = ct.c_int
-        lib.pf3_composite_fwd.argtypes = ([ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 6
-                                          + [ct.c_int] * 6 + [ct.c_float] * 4
-                                          + [ct.c_void_p] * 4)
-    for lib in libs["table_fwd"]:
-        lib.pf3_table_fwd.restype = ct.c_int
-        lib.pf3_table_fwd.argtypes = ([ct.c_void_p] * 5 + [ct.c_int] * 7 + [ct.c_float] * 4
-                                      + [ct.c_void_p] * 4)
-    shape = (256, 256)
-    scene = bench_scene("cuda")
-    sat, _ = saturating_screen("cuda")
-    times = {"composite_fwd": {}, "table_fwd": {}}
-    stats = {"composite_fwd": {}, "table_fwd": {}}
-    for tag, screen, cfg in (("bench", project(scene, shape, PRODUCTION_CONFIG),
-                              PRODUCTION_CONFIG),
-                             ("saturating", sat, RasterizeConfig())):
-        p = cfg.tile_size ** 2
-        a, _ = streamed.prepare_streamed(screen, shape, scene["background"], cfg)
-        t = table_inputs(screen, shape, scene["background"], cfg)
-        for name, args in (("composite_fwd", a), ("table_fwd", t)):
-            rows = args["counts"].shape[0]
-            n_chunks = cfg.tile_capacity // cfg.chunk + (name == "composite_fwd")
-            img = torch.empty((rows, args["channels"], p), device="cuda")
-            tfin = torch.empty((rows, 1, p), device="cuda")
-            tchk = torch.empty((rows, n_chunks, p), device="cuda")
-            heavy = streamed.heaviest_first(args["counts"])
-            runs = [(n, lib, heavy) for n, lib in zip(FWD_ABLATIONS, libs[name])]
-            in_order = torch.arange(rows, dtype=torch.int32, device="cuda")
-            runs.append(("full, rows in their order", libs[name][0], in_order))
-            for label, lib, order in runs:
-                if name == "composite_fwd":
-                    def launch(fn=lib.pf3_composite_fwd, order=order, a=args):
-                        return fn(
-                            kernels.ptr(a["featP"]), a["featP"].shape[1], kernels.ptr(a["base"]),
-                            kernels.ptr(a["off"]), kernels.ptr(a["counts"]),
-                            kernels.ptr(a["tile_ids"]), kernels.ptr(order),
-                            kernels.ptr(a["bg_rows"]), rows, a["channels"], a["tiles_x"],
-                            cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp, cfg.alpha_min,
-                            1.0 - cfg.alpha_clamp, cfg.transmittance_min, kernels.ptr(img),
-                            kernels.ptr(tfin), kernels.ptr(tchk), kernels.stream_ptr(img.device))
-                else:
-                    def launch(fn=lib.pf3_table_fwd, order=order, a=args):
-                        return fn(
-                            kernels.ptr(a["table"]), kernels.ptr(a["counts"]),
-                            kernels.ptr(a["tile_ids"]), kernels.ptr(order),
-                            kernels.ptr(a["bg_rows"]), rows, a["channels"], cfg.tile_capacity,
-                            a["tiles_x"], cfg.tile_size, cfg.chunk, n_chunks, cfg.alpha_clamp,
-                            cfg.alpha_min, 1.0 - cfg.alpha_clamp, cfg.transmittance_min,
-                            kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
-                            kernels.stream_ptr(img.device))
-
-                def checked(launch=launch, name=name):
-                    kernels.check(f"{name} (measurement build)", launch())
-
-                times[name].setdefault(label, {})[tag] = cuda_ms(checked, 20)
-        stats["composite_fwd"][tag] = fwd_work(a)
-        stats["table_fwd"][tag] = table_fwd_work(t)
-    ptxas = {name: {n: [ln.strip() for ln in reports.get(Path(lib._name).name, "").splitlines()
-                        if "registers" in ln or "spill" in ln]
-                    for n, lib in zip(FWD_ABLATIONS, libs[name])} for name in libs}
-    out = {}
-    for name, phase in (("composite_fwd", "b2_ablations"), ("table_fwd", "b6_ablations")):
-        out[name] = dict(phase=phase, ms=times[name], work=stats[name], ptxas=ptxas[name])
-        emit(out[name])
-    return out
-
-
 def sm_clock_hz() -> float:
     """The SM clock the exponential bound is reckoned at: the card's maximum
     (`nvidia-smi --query-gpu=clocks.max.sm`, MHz)."""
@@ -1401,47 +1194,6 @@ def sweep_attention() -> dict:
     return row
 
 
-ATTENTION_ABLATIONS = ("full", "no softmax", "no ex2", "no copies in the loop",
-                       "no barrier in the loop", "no P V")
-
-
-def attention_ablations() -> dict:
-    """Where the forward attention kernel's time goes: measurement builds of
-    `csrc/attention_fwd.cu` that each leave one part out
-    (`PF3_ATTENTION_ABLATE` = 1..5; their results are wrong and are not
-    read), timed beside the full kernel at the pose-stack and the ViT shape
-    of the training step. What a part's absence saves is what it costs on
-    the critical path, not its share of a unit's work."""
-    import torch
-
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
-
-    ct = kernels.ctypes
-    libs = kernels.build_variants(
-        "attention_fwd", [{"PF3_ATTENTION_ABLATE": i} for i in range(len(ATTENTION_ABLATIONS))])
-    vit_shape = vit_attention_shape(model_config(), ATTN_POSE_SHAPE[0], (256, 256))
-    times = {}
-    for tag, (b, h, n, m, d) in (("pose", ATTN_POSE_SHAPE), ("vit", vit_shape)):
-        q, k, v, _ = attention_inputs(b, h, n, m, d)
-        out = torch.empty((b, h, n, d), dtype=torch.float32, device="cuda")
-        lse = torch.empty((b, h, n), dtype=torch.float32, device="cuda")
-        for name, lib in zip(ATTENTION_ABLATIONS, libs):
-            fn = lib.pf3_attention_fwd
-            fn.restype = ct.c_int
-            fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
-
-            def launch(fn=fn):
-                kernels.check("attention_fwd (measurement build)", fn(
-                    kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out),
-                    kernels.ptr(lse), b * h, n, m, d, d**-0.5, kernels.stream_ptr(q.device)))
-
-            times.setdefault(name, {})[tag] = cuda_ms(launch, 20)
-    row = dict(phase="attn_fwd_ablations", shapes=dict(pose=ATTN_POSE_SHAPE, vit=vit_shape),
-               ms=times)
-    emit(row)
-    return row
-
-
 def table_inputs(screen, image_shape, background, config) -> dict:
     """The dense-table backend up to its composite: binning + table gather
     (the keyword arguments of `composite_table_fwd`)."""
@@ -1484,7 +1236,8 @@ def check_b6(args, tag: str, regs: dict) -> dict:
     """Kernel B6 vs its plain version on the same tables (`b6_errors`);
     times, bound, CTAs an SM, shared memory, registers and the work its data
     asks for (`table_fwd_work`)."""
-    from pf3plat_tpu_torch.ops.rasterizer import kernels, pallas_impl
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
 
     errs = b6_errors(args, tag)
     cfg, ch = args["config"], args["channels"]
@@ -1565,7 +1318,8 @@ def check_b7(args, tag: str, regs: dict) -> dict:
     checkpoints, and fixed cotangents of the image (numpy seed 1) and of
     the final T (numpy seed 2); per table column at B3's tolerance, two runs
     bit-equal."""
-    from pf3plat_tpu_torch.ops.rasterizer import kernels, pallas_impl
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import pallas_impl
 
     cfg, ch = args["config"], args["channels"]
     rows, feat, p = args["table"].shape[0], 6 + ch, cfg.tile_size**2
@@ -1693,7 +1447,8 @@ def render_on_mesh(scene, impl, config, mesh):
     import numpy as np
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import kernels, render
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import render
 
     tgt = torch.as_tensor(np.random.default_rng(1).uniform(0, 1, (2, 256, 256, 3)).astype(
         np.float32), device="cuda")
@@ -1852,7 +1607,7 @@ def serve(impl: str = "streamed", n_requests: int = 3, timed_shapes=frozenset())
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
 
     torch.manual_seed(SEED)
     t0 = time.perf_counter()
@@ -2040,7 +1795,7 @@ def train(impl: str = "streamed", n_steps: int = 2, raster=None, mesh=None,
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.parallel import shard_batch, shard_train_step
     from pf3plat_tpu_torch.training.losses import LossCfg
     from pf3plat_tpu_torch.training.train import (
@@ -2132,96 +1887,6 @@ def render_scene(captured):
                 background=torch.zeros((b * v, 3), device="cuda"))
 
 
-def mesh_spread(repeats: int = 8) -> dict:
-    """The exact-expansion train step through the (2, 2) mesh (the B5 path)
-    and unsharded, under exact(), `repeats` times each from the same initial
-    parameters: two steps in turn (step 1's gradients against the first
-    run's, step 2's gradient norm, and the parameter tensors whose step-2
-    gradients moved most), then step 2 again from one shared step-1 state.
-    Prints the rows and the spreads; gates nothing (`--mesh-spread`)."""
-    import torch
-
-    from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig
-    from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh, shard_batch, shard_train_step
-    from pf3plat_tpu_torch.precision import exact
-    from pf3plat_tpu_torch.training.losses import LossCfg
-    from pf3plat_tpu_torch.training.train import (
-        OptimizerCfg, init_train_state, make_model_train_step)
-
-    torch.manual_seed(SEED)
-    model = PF3plat(model_config("streamed", RasterizeConfig()), device="cuda")
-    names = [n for n, _ in model.encoder.named_parameters()]
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    init = snapshot(init_train_state(model), gen)
-    mesh = make_mesh(MeshCfg(data_axis=2, tile_axis=2), device="cuda")
-    batch = train_batch()
-    sides = {
-        "unsharded": (make_model_train_step(model, LossCfg(), OptimizerCfg()), batch),
-        "sharded": (shard_train_step(make_model_train_step(model, LossCfg(), OptimizerCfg(),
-                                                           mesh=mesh), mesh),
-                    shard_batch(mesh, batch)),
-    }
-
-    def grads(state):
-        return [torch.zeros_like(p) if p.grad is None else p.grad.clone() for p in state.params]
-
-    def worst_tensors(a, b):
-        """The parameter tensors whose gradients differ most between a and b."""
-        out = sorted((float((x - y).norm()), n, float(y.norm())) for n, x, y in zip(names, a, b))
-        return [dict(name=n, diff_norm=d, norm=s) for d, n, s in out[-3:][::-1]]
-
-    def rel(a, b):
-        return abs(a - b) / abs(b)
-
-    rows, common, ref, shared = [], [], None, None
-    with exact():
-        for r in range(repeats):
-            for side, (step, b) in sides.items():
-                state, a1 = step(restore(init_train_state(model), gen, init), b, generator=gen)
-                snap1 = snapshot(state, gen)
-                state, a2 = step(state, b, generator=gen)
-                g2 = grads(state)
-                row = dict(side=side, repeat=r, loss=[float(a1["loss"]), float(a2["loss"])],
-                           grad_norm=[float(a1["grad_norm"]), float(a2["grad_norm"])])
-                if ref is None:
-                    ref, shared = dict(step1=snap1, g2=g2, row=row), snap1
-                else:
-                    row.update(first_moment_rel=first_moment_rel(snap1, ref["step1"]),
-                               step2_grad_norm_rel=rel(row["grad_norm"][1],
-                                                       ref["row"]["grad_norm"][1]),
-                               step2_worst_tensors=worst_tensors(g2, ref["g2"]))
-                rows.append(row)
-                emit(dict(phase="mesh_spread", part="in_turn", **row))
-                del snap1, g2
-        for r in range(max(2, repeats // 2)):
-            for side, (step, b) in sides.items():
-                _, a2 = step(restore(init_train_state(model), gen, shared), b, generator=gen)
-                row = dict(side=side, repeat=r, loss=float(a2["loss"]),
-                           grad_norm=float(a2["grad_norm"]))
-                common.append(row)
-                emit(dict(phase="mesh_spread", part="shared_state", **row))
-
-    def spread(xs, key, i=None):
-        vals = [x[key] if i is None else x[key][i] for x in xs]
-        return (max(vals) - min(vals)) / abs(vals[0])
-
-    summary = {side: dict(step1_grad_norm_rel_spread=spread(mine, "grad_norm", 0),
-                          step2_grad_norm_rel_spread=spread(mine, "grad_norm", 1),
-                          step2_loss_rel_spread=spread(mine, "loss", 1),
-                          shared_state_grad_norm_rel_spread=spread(
-                              [x for x in common if x["side"] == side], "grad_norm"))
-               for side in sides for mine in [[x for x in rows if x["side"] == side]]}
-    summary.update(
-        in_turn_step2_grad_norm_rel_spread=spread(rows, "grad_norm", 1),
-        shared_state_grad_norm_rel_spread=spread(common, "grad_norm"),
-        first_moment_max_rel=max(x["first_moment_rel"] for x in rows[1:]))
-    emit(dict(phase="mesh_spread", part="summary", repeats=repeats, **summary))
-    del model, sides, ref, shared
-    torch.cuda.empty_cache()
-    return summary
-
-
 def reference_check(scene, config):
     """One served view rendered end to end on the CPU (plain versions)
     against the card (kernels), from the same projected gaussians."""
@@ -2252,7 +1917,8 @@ def depth_phase(captured, config):
 
     from pf3plat_tpu_torch.geometry.projection import se3_inverse
     from pf3plat_tpu_torch.models.decoder import DecoderCfg, decode
-    from pf3plat_tpu_torch.ops.rasterizer import kernels, render
+    from pf3plat_tpu_torch import kernels
+    from pf3plat_tpu_torch.ops.rasterizer import render
 
     g = captured["gaussians"]
     extr, intr = captured["extrinsics"], captured["intrinsics"]
@@ -2553,10 +2219,10 @@ def timed_batches(batch_iterator, waits: list):
 
 
 @contextlib.contextmanager
-def instrument_main(on_call=None, after_call=None, timed: bool = True):
+def instrument_main(on_call=None, after_call=None):
     """Record what `main` does inside the block: each train-step call
-    (launches of every kernel; with `timed`, also host ms, the stage split
-    by CUDA events, peak memory and the loss) and each wait for the next
+    (launches of every kernel, host ms, the stage split by CUDA events, peak
+    memory and the loss) and each wait for the next
     batch (`data_wait_ms`). `on_call(index, model, state, batch, kwargs)`
     runs before a step, `after_call(index)` after it. Patches
     `training.train.make_model_train_step` and `main.batch_iterator`, which
@@ -2564,7 +2230,7 @@ def instrument_main(on_call=None, after_call=None, timed: bool = True):
     import torch
 
     import pf3plat_tpu_torch.main as port_main
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.training import train as train_mod
 
     rec = {"steps": [], "data_wait_ms": []}
@@ -2578,13 +2244,6 @@ def instrument_main(on_call=None, after_call=None, timed: bool = True):
             if on_call is not None:
                 on_call(index, model, state, batch, kw)
             before = dict(kernels.LAUNCHES)
-            if not timed:
-                state, aux = step(state, batch, **kw)
-                rec["steps"].append(dict(step=state.step, launches={
-                    k: kernels.LAUNCHES[k] - before[k] for k in kernels.LAUNCHES}))
-                if after_call is not None:
-                    after_call(index)
-                return state, aux
             timer = StageTimer()
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2780,7 +2439,7 @@ def instrument_test():
 
     import pf3plat_tpu_torch.main as port_main
     from pf3plat_tpu_torch.evaluation.evaluator import Evaluator
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
 
     rec = {"requests": [], "data_wait_ms": []}
     run_example, batch_iterator = Evaluator.run_example, port_main.batch_iterator
@@ -2827,7 +2486,7 @@ def main_test(serve_per_request: dict | None) -> dict:
 
     from pf3plat_tpu_torch.evaluation import index_generator
     from pf3plat_tpu_torch.evaluation.evaluator import VIDEO_CHUNK
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.training.metrics import compute_psnr
 
     roots = [MAIN_DATA / "pfchunk", MAIN_DATA / "torch"]
@@ -2963,7 +2622,7 @@ def check_adam(which: str) -> dict:
     plain version fed the kernel's norm (bit for bit), then the times."""
     import torch
 
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.training import train
 
     params = [p.detach() for p in adam_leaves(which)]
@@ -3059,7 +2718,7 @@ def train_frozen() -> float:
     import torch
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.training.losses import LossCfg
     from pf3plat_tpu_torch.training.train import (
         OptimizerCfg, TrainState, make_model_train_step, make_optimizer, make_train_step)
@@ -3391,7 +3050,7 @@ def pose_path(zero_match_step_ms: float | None = None) -> None:
 
     from pf3plat_tpu_torch.models import encoder as E
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.precision import exact
     from pf3plat_tpu_torch.training import losses, metrics
     from pf3plat_tpu_torch.utils import profiling
@@ -3669,7 +3328,7 @@ def policy_step(knobs: dict, trace_dir: Path | None = None, exact_steps: bool = 
     from pf3plat_tpu_torch.precision import exact
 
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
     from pf3plat_tpu_torch.training.losses import LossCfg
     from pf3plat_tpu_torch.training.train import (
         OptimizerCfg, init_train_state, make_model_train_step)
@@ -4399,7 +4058,7 @@ def precision_phase() -> None:
 
     from pf3plat_tpu_torch import precision
     from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
 
     torch.manual_seed(SEED)
     model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
@@ -4509,117 +4168,6 @@ def trace_window(log_dir: Path, window: str) -> dict:
                 negative_lead_ms=busy["negative_lead_us"] / 1e3,
                 top_ops=[dict(name=r["name"][:100], ms=r["total_us"] / 1e3, count=r["count"],
                               launched_by=r["launched_by"]) for r in top])
-
-
-def trace_child(out_path: Path) -> int:
-    """The traced windows, run in a fresh process (`--trace-child`): two warm
-    steps of `main`'s loop (steps 2 and 3 of a 3-step run of
-    configs/re10k.yaml at b=3 on the main_train data) and one serving
-    request of the `serve` phase's model (after a warm-up request). Writes
-    {window: trace_window(...)} to `out_path`."""
-    import shutil
-
-    import torch
-
-    from pf3plat_tpu_torch.models.pf3plat import PF3plat
-    from pf3plat_tpu_torch.precision import apply_policy
-    from pf3plat_tpu_torch.utils import profiling
-
-    apply_policy(torch.device("cuda"))
-    shutil.rmtree(TRACE_DIR, ignore_errors=True)
-    seconds = {}
-    t0 = time.perf_counter()
-    torch.manual_seed(SEED)
-    model = PF3plat(model_config(config="re10k_test.yaml"), device="cuda")
-    images, intr, near, far = serving_inputs()
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-
-    stack = contextlib.ExitStack()
-
-    def open_window(index, model_, state, batch, kw):
-        if index == 1:  # steps 2 and 3: the loop's warm steps
-            stack.enter_context(profiling.trace(TRACE_DIR / "main_train", window="main_train"))
-
-    def close_window(index):
-        if index == 2:
-            stack.close()
-
-    ckpt, out = REPO / "build" / "trace_ckpt", REPO / "build" / "trace_out"
-    for d in (ckpt, out):
-        shutil.rmtree(d, ignore_errors=True)
-    roots = [MAIN_DATA / "pfchunk", MAIN_DATA / "torch"]
-    seconds["serve_model"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    # untimed: no synchronisation or events of this script inside the window
-    with instrument_main(open_window, close_window, timed=False) as rec:
-        run_main(main_argv(roots, 3, ckpt, out, "train.sanity_validation=false",
-                           "train.val_check_interval=1000", "checkpointing.every_n_steps=1000"))
-    seconds["main"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        model(images, intr, near, far, 0, generator=gen)  # warm-up
-        with profiling.trace(TRACE_DIR / "serve", window="serve"):
-            model(images, intr, near, far, 0, generator=gen)
-    seconds["serve"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    result = {"main_train": trace_window(TRACE_DIR / "main_train", "main_train"),
-              "serve": trace_window(TRACE_DIR / "serve", "serve")}
-    seconds["analysis"] = time.perf_counter() - t0
-    result.update(seconds=seconds, data_wait_ms=rec["data_wait_ms"])
-    out_path.write_text(json.dumps(result))
-    return 0
-
-
-def trace_phase() -> None:
-    """Phase `trace`: the traced windows in a child process (a fresh
-    process: `torch.profiler` stamps device activity by a clock that drifts
-    from the host's over a long process's life, and drops what it places
-    before its session's start; `late_probe` shows that in this process).
-    Fails if the child fails or a window holds no device event."""
-    import torch
-
-    from pf3plat_tpu_torch.ops.rasterizer import compact
-    from pf3plat_tpu_torch.utils import profiling
-
-    out_path = REPO / "build" / "trace_child.json"
-    out_path.unlink(missing_ok=True)
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--trace-child",
-                           str(out_path)], capture_output=True, text=True, timeout=900)
-    child_s = time.perf_counter() - t0
-    if proc.returncode != 0 or not out_path.exists():
-        raise AssertionError(f"trace: child exited {proc.returncode}:\n{proc.stdout[-3000:]}\n"
-                             f"{proc.stderr[-3000:]}")
-    result = json.loads(out_path.read_text())
-    empty = [k for k in ("main_train", "serve") if result[k]["device_events"] == 0]
-    if empty:
-        raise AssertionError(f"trace: no device events in the window(s) {empty}")
-
-    # the same kind of session in this long-lived process: one B1 call and
-    # one matmul (3 kernels and 1 memset on the card)
-    n = 1 << 20
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cand = dict(valid=torch.rand(n, device="cuda", generator=gen) < 0.5,
-                tile=torch.randint(0, 1000, (n,), device="cuda", dtype=torch.int32,
-                                   generator=gen),
-                dkey=torch.randint(0, 1000, (n,), device="cuda", dtype=torch.int32,
-                                   generator=gen),
-                pid=torch.arange(n, device="cuda", dtype=torch.int32),
-                feats=torch.randn((9, n), device="cuda", generator=gen))
-    a = torch.randn((2048, 2048), device="cuda", generator=gen)
-    torch.cuda.synchronize()
-    probe_dir = TRACE_DIR / "late_probe"
-    with profiling.trace(probe_dir, window="late_probe"):
-        a @ a
-        compact.compact_candidates_cuda(cand, n // 2, 4096)
-    probe = profiling.device_busy(probe_dir, window="late_probe")
-    emit(dict(phase="trace", child_s=child_s, traces=str(TRACE_DIR.relative_to(REPO)),
-              main_train=result["main_train"], serve=result["serve"],
-              main_train_data_wait_ms=result["data_wait_ms"], child_seconds=result["seconds"],
-              late_probe=dict(device_events=probe["device_events"], expected=4,
-                              busy_ms=probe["busy_us"] / 1e3, wall_ms=probe["wall_us"] / 1e3,
-                              launch_lead_min_us=probe["launch_lead_min_us"],
-                              negative_leads=probe["negative_leads"])))
 
 
 # Phase procs_mesh: two processes (ranks) on the one card, gloo between them
@@ -4922,15 +4470,13 @@ def main(argv) -> int:
         print("chip_smoke: run it from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    if argv[:1] == ["--trace-child"]:
-        return trace_child(Path(argv[1]))
     if argv[:1] == ["--procs-child"]:
         return procs_child(int(argv[1]), argv[2], Path(argv[3]))
     LOG.unlink(missing_ok=True)
 
-    from pf3plat_tpu_torch import precision
+    from pf3plat_tpu_torch import kernels, precision
     from pf3plat_tpu_torch.models.decoder import PRODUCTION_CONFIG
-    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig, kernels
+    from pf3plat_tpu_torch.ops.rasterizer import RasterizeConfig
     from pf3plat_tpu_torch.parallel import MeshCfg, make_mesh
     from pf3plat_tpu_torch.precision import exact
 
@@ -4956,13 +4502,11 @@ def main(argv) -> int:
     emit(env_inventory())
     if "--main" in argv:
         # the training entry point alone: the train phase's launches per
-        # step (one streamed step of record), main_train, trace
+        # step (one streamed step of record), main_train, main_test
         _, launches, _, _ = train("streamed")
         main_train({k: n // 2 for k, n in launches.items()})
         torch.cuda.empty_cache()
         main_test(None)
-        torch.cuda.empty_cache()
-        trace_phase()
         print(smi, flush=True)
         return 0
 
@@ -4991,24 +4535,6 @@ def main(argv) -> int:
         print(smi, flush=True)
         return 0
 
-    if "--mesh-spread" in argv:
-        # the sharded and unsharded exact-expansion steps, repeated
-        mesh_spread()
-        print(smi, flush=True)
-        return 0
-
-    if "--attention-ablations" in argv:
-        attention_ablations()
-        print(smi, flush=True)
-        return 0
-    if "--bwd-ablations" in argv:
-        bwd_ablations()
-        print(smi, flush=True)
-        return 0
-    if "--fwd-ablations" in argv:
-        fwd_ablations()
-        print(smi, flush=True)
-        return 0
     if "--adam" in argv:
         adam_phase()
         print(smi, flush=True)
@@ -5158,15 +4684,12 @@ def main(argv) -> int:
     memory_policy()
 
     # The training entry point at full width, its resume, the serving entry
-    # point restored from it, then the traced windows (main's loop, a
-    # serving request) in a child process.
+    # point restored from it, then the same entry point over two processes.
     main_per_step = main_train(train_per_step)
     torch.cuda.empty_cache()
     main_test_per_request = main_test(serve_per_request)
     torch.cuda.empty_cache()
     procs_per_rank = procs_mesh()
-    torch.cuda.empty_cache()
-    trace_phase()
     # the attention kernels at the pose-stack shape (forward and backward of
     # a training step); the ViT shape's rows are the attn_*_vit lines
     rows["attention_fwd"], rows["attention_bwd"] = attn_pose

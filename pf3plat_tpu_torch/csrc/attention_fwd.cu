@@ -45,17 +45,8 @@
 
 #include "attention_mma.cuh"
 
-// Measurement builds only (`chip_smoke.py --attention-ablations`): a value
-// other than 0 leaves one part of the kernel out, for timing what the rest
-// costs; the results of such a build are wrong. 1: no softmax, 2: no `ex2`,
-// 3: no copies inside the loop, 4: no barrier inside the loop, 5: no P V.
-#ifndef PF3_ATTENTION_ABLATE
-#define PF3_ATTENTION_ABLATE 0
-#endif
-
 namespace {
 
-constexpr int kAblate = PF3_ATTENTION_ABLATE;
 constexpr int kKeys = 64;   // keys of a tile
 constexpr int kStages = 4;  // tiles of the ring (>= 3: a block's K is read one block early)
 
@@ -134,10 +125,8 @@ __global__ void __launch_bounds__(kThreads, 2) attention_fwd_kernel(
       for (int j = 0; j < kKeys / 8; ++j) {
         float p0 = fmaf(s[4 * j + 2 * h], c, -shift);
         float p1 = fmaf(s[4 * j + 2 * h + 1], c, -shift);
-        if (kAblate != 2) {
-          p0 = fast_exp2(p0);
-          p1 = fast_exp2(p1);
-        }
+        p0 = fast_exp2(p0);
+        p1 = fast_exp2(p1);
         s[4 * j + 2 * h] = p0;
         s[4 * j + 2 * h + 1] = p1;
         part += p0 + p1;
@@ -186,13 +175,13 @@ __global__ void __launch_bounds__(kThreads, 2) attention_fwd_kernel(
   for (int blk = 0; blk + 1 < blocks; ++blk) {
     cp_async_wait<kStages - 3>();  // this thread's copies of block blk + 1 landed
     fence_proxy_async();
-    if (kAblate != 4) __syncthreads();  // everyone's landed and done with block blk - 1
-    fetch(kAblate != 3 ? blk + kStages - 1 : blocks);
+    __syncthreads();  // everyone's landed and done with block blk - 1
+    fetch(blk + kStages - 1);
     wgmma_fence();
     start_logits(blk + 1);
-    if (kAblate != 5) start_pv(blk); else wgmma_commit();
+    start_pv(blk);
     wgmma_wait<1>();  // S of block blk + 1
-    if (kAblate != 1) softmax(blk + 1);
+    softmax(blk + 1);
     wgmma_wait<0>();  // P V of block blk
     rescale_and_pack();
   }

@@ -83,18 +83,13 @@
 //     written slot-major as one chunk x F block, zeros outside the segment
 //     and in the chunks that are not walked; gt adds g_tfin.
 //
-// PF3_BWD_ABLATE (measurement builds only, `chip_smoke.py --bwd-ablations`;
-// their results are wrong): 1 no replay, 2 no shuffles, 3 no reciprocal,
-// 4 no feature copies after the first chunk (later chunks walk stale
-// features, so the work changes too), 5 no reverse sweep.
+// The replay, the shuffles, the reciprocal, the feature copies after the
+// first chunk and the reverse sweep were each timed by a build that left
+// that part out (the splits are in the history of PERF.md).
 
 #pragma once
 
 #include "composite_walk_common.cuh"
-
-#ifndef PF3_BWD_ABLATE
-#define PF3_BWD_ABLATE 0
-#endif
 
 constexpr int kMinCtas = 3;  // CTAs an SM the build is held to
 
@@ -334,10 +329,8 @@ __device__ __forceinline__ void composite_bwd_row(const WalkArgs& a) {
                  a.alpha_min);
     }
     __syncthreads();  // features staged; s_raw is free
-#if PF3_BWD_ABLATE != 4
     // The next chunk's rows arrive while this one is walked.
     if (i - 1 >= i_min) fetch(i - 1);
-#endif
     const int j_lo = max(seg_lo - i * chunk, 0);
     const int j_hi = min(seg_hi - i * chunk, chunk);
     const int sb_lo = j_lo / kSub;
@@ -397,11 +390,7 @@ __device__ __forceinline__ void composite_bwd_row(const WalkArgs& a) {
       for (int sb = sb_hi - 1; sb >= sb_lo; --sb) {
         const uint32_t span = span_bits(j_lo - sb * kSub, j_hi - sb * kSub);
         const uint32_t bits = s_mask[sb * nt + l];
-#if PF3_BWD_ABLATE == 5
-        const uint32_t active = 0;
-#else
         const uint32_t active = __reduce_or_sync(0xffffffffu, bits);  // within span
-#endif
         float* sb_red = w_red + sb * kSub * kFeat;
         if (first && lane < kFeat) {
           for (uint32_t z = span & ~active; z != 0; z &= z - 1)
@@ -421,12 +410,10 @@ __device__ __forceinline__ void composite_bwd_row(const WalkArgs& a) {
           if (k >= n_act) break;
           const int s = __ffs(rest) - 1;
           rest &= rest - 1;
-#if PF3_BWD_ABLATE != 1
           const float4 fa = fs[3 * s];
           const float4 fb = fs[3 * s + 1];
           acc += log1pf(-pair_alpha(pixel.x, pixel.y, fa.x, fa.y, fa.z, fa.w, fb.x, fb.y,
                                     a.alpha_clamp, a.alpha_min).alpha);
-#endif
           inc[k] = acc;
         }
         // Gradients, active steps last first.
@@ -444,11 +431,7 @@ __device__ __forceinline__ void composite_bwd_row(const WalkArgs& a) {
                                           a.alpha_clamp, a.alpha_min);
           const float t_after = t0 * expf(inc[k]);
           const float one_m = fmaxf(1.0f - pa.alpha, a.one_minus_clamp);
-#if PF3_BWD_ABLATE == 3
-          const float rcp = one_m;
-#else
           const float rcp = __fdividef(1.0f, one_m);
-#endif
           const float t_before = t_after * rcp;
           const float wgt = t_before * pa.alpha;
           const float cg = fb.w * pixel.g[0] + fc.x * pixel.g[1] + fc.y * pixel.g[2];
@@ -467,13 +450,8 @@ __device__ __forceinline__ void composite_bwd_row(const WalkArgs& a) {
           v[6] = c ? pixel.g[0] * wgt : 0.0f;
           v[7] = c ? pixel.g[1] * wgt : 0.0f;
           v[8] = c ? pixel.g[2] * wgt : 0.0f;
-#if PF3_BWD_ABLATE == 2
-          const float sum = v[0] + v[1] + v[2] + v[3] + v[4] + v[5] + v[6] + v[7] + v[8];
-          if (lane < kFeat) put_partial(sb_red + s * kFeat + lane, sum, first);
-#else
           const float sum = warp_sum9(v, lane);
           if (red_k >= 0) put_partial(sb_red + s * kFeat + red_k, sum, first);
-#endif
         }
       }
       tail += run;

@@ -69,18 +69,13 @@
 //     division (T is not touched by it).
 // Deterministic, no atomics.
 //
-// PF3_FWD_ABLATE (measurement builds only, `chip_smoke.py --fwd-ablations`):
-// 1 no power-test skip (every in-segment pair is a candidate: same
-// results), 2 no cp.async prefetch (each chunk's copy waited for at once:
-// same results), 3 no colour update (wrong images).
+// The power-test skip, the cp.async prefetch and the colour update were
+// each timed by a build that left that part out (the splits are in the
+// history of PERF.md).
 
 #pragma once
 
 #include "composite_walk_common.cuh"
-
-#ifndef PF3_FWD_ABLATE
-#define PF3_FWD_ABLATE 0
-#endif
 
 constexpr int kFwdMinCtas = 4;  // CTAs an SM the build is held to
 
@@ -198,13 +193,8 @@ __device__ __forceinline__ void composite_fwd_row(const FwdArgs& a) {
       s_state[3 * p + q] = 0.0f;
     }
   }
-#if PF3_FWD_ABLATE != 2
   if (i_lo < i_hi) fetch(i_lo);
-#endif
   for (int i = i_lo; i < i_hi; ++i) {
-#if PF3_FWD_ABLATE == 2
-    fetch(i);
-#endif
     float4* fs_buf = s_feat + 3 * n_pad * ((i - i_lo) & 1);
     cp_async_wait_all();  // this thread's copies of chunk i are in
     for (int q = l; q < n_pad; q += nt) {
@@ -214,9 +204,7 @@ __device__ __forceinline__ void composite_fwd_row(const FwdArgs& a) {
     // Chunk i is staged, and every thread is past chunk i - 1, whose
     // buffer chunk i + 1 takes.
     __syncthreads();
-#if PF3_FWD_ABLATE != 2
     if (i + 1 < i_hi) fetch(i + 1);
-#endif
     const int j_lo = max(seg_lo - i * chunk, 0);
     const int j_hi = min(span_hi - i * chunk, chunk);
     const int sb_lo = j_lo / kSub;
@@ -241,15 +229,11 @@ __device__ __forceinline__ void composite_fwd_row(const FwdArgs& a) {
         const float4* fs = fs_buf + 3 * sb * kSub;
         uint32_t cand = 0;
         if (live) {
-#if PF3_FWD_ABLATE == 1
-          cand = (1u << kSub) - 1u;
-#else
 #pragma unroll
           for (int s = 0; s < kSub; ++s) {
             const float power = pair_power(px, py, fs[3 * s], fs[3 * s + 1].x);
             if (!(power < fs[3 * s + 1].z)) cand |= 1u << s;
           }
-#endif
           cand &= span_bits(j_lo - sb * kSub, j_hi - sb * kSub);
         }
         if (!__any_sync(0xffffffffu, cand != 0)) continue;
@@ -267,14 +251,12 @@ __device__ __forceinline__ void composite_fwd_row(const FwdArgs& a) {
             live = false;
             break;
           }
-#if PF3_FWD_ABLATE != 3
           const float4 fc = fs[3 * s + 2];
           const float w =
               t_after * __fdividef(1.0f, fmaxf(1.0f - alpha, a.one_minus_clamp)) * alpha;
           acc0 += w * fb.w;
           acc1 += w * fc.x;
           acc2 += w * fc.y;
-#endif
           T = t_after;  // the T after the chunk's last alive pair, so far
         }
       }

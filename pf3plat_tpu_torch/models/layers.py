@@ -36,7 +36,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.rasterizer import kernels
+from .. import kernels
 from ..precision import bf16_round as _bf16
 from ..precision import exact_einsum
 
@@ -136,14 +136,7 @@ def attention_fwd_cuda(q, k, v, scale: float):
         ((b, h, n, d), (b, h, m, d), (b, h, m, d)))
     out = torch.empty((b, h, n, d), dtype=torch.float32, device=q.device)
     lse = torch.empty((b, h, n), dtype=torch.float32, device=q.device)
-    ct = kernels.ctypes
-    fn = kernels.load("attention_fwd").pf3_attention_fwd
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
-    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(out), kernels.ptr(lse),
-            b * h, n, m, d, scale, kernels.stream_ptr(q.device))
-    kernels.check("attention_fwd", rc)
-    kernels.LAUNCHES["attention_fwd"] += 1
+    kernels.launch("pf3_attention_fwd", q, k, v, out, lse, b * h, n, m, d, scale)
     return out, lse
 
 
@@ -160,15 +153,8 @@ def attention_bwd_cuda(q, k, v, out, lse, d_out, scale: float):
     dq = torch.empty((b, h, n, d), dtype=f32, device=dev)
     dk = torch.empty((b, h, m, d), dtype=f32, device=dev)
     dv = torch.empty((b, h, m, d), dtype=f32, device=dev)
-    ct = kernels.ctypes
-    fn = kernels.load("attention_bwd").pf3_attention_bwd
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 4 + [ct.c_float, ct.c_void_p]
-    rc = fn(kernels.ptr(q), kernels.ptr(k), kernels.ptr(v), kernels.ptr(d_out),
-            kernels.ptr(out), kernels.ptr(lse), kernels.ptr(delta), kernels.ptr(dq),
-            kernels.ptr(dk), kernels.ptr(dv), b * h, n, m, d, scale, kernels.stream_ptr(dev))
-    kernels.check("attention_bwd", rc)
-    kernels.LAUNCHES["attention_bwd"] += 1
+    kernels.launch("pf3_attention_bwd", q, k, v, d_out, out, lse, delta, dq, dk, dv, b * h, n,
+                   m, d, scale)
     return dq, dk, dv
 
 
@@ -176,12 +162,9 @@ def attention_occupancy(d: int) -> dict[str, int]:
     """CTAs per SM that the built attention kernels reach at head dim d
     (`cudaOccupancyMaxActiveBlocksPerMultiprocessor`): the forward, the
     backward's dk/dv pass and its dq pass. Needs the card."""
-    ct = kernels.ctypes
-    fwd = kernels.load("attention_fwd").pf3_attention_fwd_occupancy
-    bwd = kernels.load("attention_bwd").pf3_attention_bwd_occupancy
-    fwd.restype = bwd.restype = ct.c_int
-    fwd.argtypes, bwd.argtypes = [ct.c_int], [ct.c_int, ct.c_int]
-    got = {"fwd": fwd(d), "bwd_dkdv": bwd(d, 0), "bwd_dq": bwd(d, 1)}
+    got = {"fwd": kernels.call("pf3_attention_fwd_occupancy", d),
+           "bwd_dkdv": kernels.call("pf3_attention_bwd_occupancy", d, 0),
+           "bwd_dq": kernels.call("pf3_attention_bwd_occupancy", d, 1)}
     if min(got.values()) < 0:
         raise RuntimeError(f"attention kernels: occupancy query failed at head dim {d}: {got}")
     return got

@@ -8,7 +8,7 @@ JPEG buffers are served zero-copy out of the file mapping.
 
 The shared library builds at first use (`g++ -O2 -fPIC -shared`, plain C
 ABI through ctypes) into `<repo>/build/native/<hash of the source>/`, as
-`ops/rasterizer/kernels.py` builds the CUDA libraries. A failed build
+`kernels.py` builds the CUDA libraries. A failed build
 raises.
 """
 

@@ -26,8 +26,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import kernels
 from ...utils.profiling import count, tracing
-from . import kernels
 from .binning import (
     INT32_MAX,
     depth_levels,
@@ -212,23 +212,9 @@ def compact_candidates_cuda(cand: dict, budget: int, window: int) -> dict:
     out = _outputs(budget, dev)
     # the windows' status words and the ticket, zeroed by the kernel's memset
     scratch = torch.empty(n_windows + 1, dtype=torch.int64, device=dev)
-    lib = kernels.load("compact_pairs")
-    fn = lib.pf3_compact_pairs
-    fn.restype = kernels.ctypes.c_int
-    vp = kernels.ctypes.c_void_p
-    fn.argtypes = [vp] * 5 + [
-        kernels.ctypes.c_longlong, kernels.ctypes.c_int, kernels.ctypes.c_longlong,
-    ] + [vp] * 7
-    rc = fn(
-        kernels.ptr(valid.view(torch.uint8)), kernels.ptr(cand["tile"]),
-        kernels.ptr(cand["dkey"]), kernels.ptr(cand["pid"]),
-        kernels.ptr(cand["feats"]), n_cand, window, budget,
-        kernels.ptr(scratch), kernels.ptr(out["counts"]),
-        kernels.ptr(out["tile"]), kernels.ptr(out["dkey"]), kernels.ptr(out["ids"]),
-        kernels.ptr(out["feats"]), kernels.stream_ptr(dev),
-    )
-    kernels.check("compact_pairs", rc)
-    kernels.LAUNCHES["compact_pairs"] += 1
+    kernels.launch("pf3_compact_pairs", valid.view(torch.uint8), cand["tile"], cand["dkey"],
+                   cand["pid"], cand["feats"], n_cand, window, budget, scratch, out["counts"],
+                   out["tile"], out["dkey"], out["ids"], out["feats"])
     return out
 
 
@@ -305,15 +291,7 @@ def dup_reduce_cuda(grads, ids, n_gauss: int, max_dup: int):
             or not ids.is_contiguous():
         raise ValueError(f"ids: want a contiguous ({grads.shape[1]},) int32 tensor on {dev}")
     out = torch.empty((N_FEAT, n_gauss), dtype=torch.float32, device=dev)
-    ct = kernels.ctypes
-    fn = kernels.load("dup_reduce").pf3_dup_reduce
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p, ct.c_longlong, ct.c_void_p, ct.c_int, ct.c_int,
-                   ct.c_void_p, ct.c_void_p]
-    rc = fn(kernels.ptr(grads), grads.shape[1], kernels.ptr(ids), n_gauss, max_dup,
-            kernels.ptr(out), kernels.stream_ptr(dev))
-    kernels.check("dup_reduce", rc)
-    kernels.LAUNCHES["dup_reduce"] += 1
+    kernels.launch("pf3_dup_reduce", grads, grads.shape[1], ids, n_gauss, max_dup, out)
     return out
 
 

@@ -48,8 +48,8 @@ from __future__ import annotations
 
 import torch
 
+from ... import kernels
 from ...parallel.collectives import gather_in_shard_order, shard_rows
-from . import kernels
 from .binning import BinnedTiles
 from .streamed import (
     _chunk_alpha,
@@ -190,19 +190,10 @@ def composite_table_fwd_cuda(table, counts, tile_ids, bg_rows, tiles_x, channels
     img = torch.empty((rows, channels, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((rows, 1, p), dtype=torch.float32, device=dev)
     tchk = torch.empty((rows, n_chunks, p), dtype=torch.float32, device=dev)
-    ct = kernels.ctypes
-    fn = kernels.load("table_fwd").pf3_table_fwd
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 5 + [ct.c_int] * 7 + [ct.c_float] * 4 + [ct.c_void_p] * 4
-    rc = fn(
-        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(order),
-        kernels.ptr(bg_rows), rows, channels, config.tile_capacity, tiles_x, config.tile_size,
-        config.chunk, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
-        config.transmittance_min, kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check("table_fwd", rc)
-    kernels.LAUNCHES["table_fwd"] += 1
+    kernels.launch("pf3_table_fwd", table, counts, tile_ids, order, bg_rows, rows, channels,
+                   config.tile_capacity, tiles_x, config.tile_size, config.chunk, n_chunks,
+                   config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+                   config.transmittance_min, img, tfin, tchk)
     return img, tfin, tchk
 
 
@@ -224,20 +215,10 @@ def composite_table_bwd_cuda(table, counts, tile_ids, bg_rows, tfin, tchk, g_img
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
     nproc = n_processed(tchk)
     order = heaviest_first(counts)
-    ct = kernels.ctypes
-    fn = kernels.load("table_bwd").pf3_table_bwd
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p] * 10 + [ct.c_int] * 6 + [ct.c_float] * 4 + [ct.c_void_p] * 3
-    rc = fn(
-        kernels.ptr(table), kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc),
-        kernels.ptr(order), kernels.ptr(bg_rows), kernels.ptr(tfin), kernels.ptr(tchk),
-        kernels.ptr(g_img), kernels.ptr(g_tfin), rows, channels, tiles_x, config.tile_size,
-        config.chunk, n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
-        config.transmittance_min, kernels.ptr(dtab), kernels.ptr(dbg),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check("table_bwd", rc)
-    kernels.LAUNCHES["table_bwd"] += 1
+    kernels.launch("pf3_table_bwd", table, counts, tile_ids, nproc, order, bg_rows, tfin, tchk,
+                   g_img, g_tfin, rows, channels, tiles_x, config.tile_size, config.chunk,
+                   n_chunks, config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+                   config.transmittance_min, dtab, dbg)
     return dtab, dbg
 
 

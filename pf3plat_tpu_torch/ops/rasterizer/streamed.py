@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import torch
 
-from . import kernels
+from ... import kernels
 from .binning import INT32_MAX, sort_by_tile_depth
 from .compact import (
     N_FEAT,
@@ -264,24 +264,10 @@ def composite_fwd_cuda(featP, base, off, counts, tile_ids, bg_rows, tiles_x,
     img = torch.empty((rows, channels, p), dtype=torch.float32, device=dev)
     tfin = torch.empty((rows, 1, p), dtype=torch.float32, device=dev)
     tchk = torch.empty((rows, n_chunks, p), dtype=torch.float32, device=dev)
-    ct = kernels.ctypes
-    lib = kernels.load("composite_fwd")
-    fn = lib.pf3_composite_fwd
-    fn.restype = ct.c_int
-    fn.argtypes = (
-        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 6 + [ct.c_int] * 6
-        + [ct.c_float] * 4 + [ct.c_void_p] * 4
-    )
-    rc = fn(
-        kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
-        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(order), kernels.ptr(bg_rows),
-        rows, channels, tiles_x, ts, ck, n_chunks, config.alpha_clamp, config.alpha_min,
-        1.0 - config.alpha_clamp, config.transmittance_min,
-        kernels.ptr(img), kernels.ptr(tfin), kernels.ptr(tchk),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check("composite_fwd", rc)
-    kernels.LAUNCHES["composite_fwd"] += 1
+    kernels.launch("pf3_composite_fwd", featP, featP.shape[1], base, off, counts, tile_ids,
+                   order, bg_rows, rows, channels, tiles_x, ts, ck, n_chunks,
+                   config.alpha_clamp, config.alpha_min, 1.0 - config.alpha_clamp,
+                   config.transmittance_min, img, tfin, tchk)
     return img, tfin, tchk
 
 
@@ -392,10 +378,7 @@ def composite_bwd_blocks_plain(featP, base, off, counts, tile_ids, nproc, bg_row
 def bwd_sub_block() -> int:
     """Pairs per sub-block of the compositing walks (`kSub`: kernels B2, B3,
     B5 and B7)."""
-    fn = kernels.load("composite_bwd").pf3_composite_bwd_sub_block
-    fn.restype = kernels.ctypes.c_int
-    fn.argtypes = []
-    return int(fn())
+    return kernels.call("pf3_composite_bwd_sub_block")
 
 
 def _check_bwd_args(name, featP, base, off, counts, tile_ids, nproc, bg_rows, tfin, tchk,
@@ -450,24 +433,11 @@ def _launch_bwd(name, out, featP, base, off, counts, tile_ids, nproc, bg_rows, t
     dbg = torch.empty((rows, channels), dtype=torch.float32, device=dev)
     if order is None:
         order = heaviest_first(counts)
-    ct = kernels.ctypes
-    fn = getattr(kernels.load(name), f"pf3_{name}")
-    fn.restype = ct.c_int
-    fn.argtypes = (
-        [ct.c_void_p, ct.c_longlong] + [ct.c_void_p] * 10 + [ct.c_int] * 6
-        + [ct.c_float] * 4 + [ct.c_void_p] * 3
-    )
-    rc = fn(
-        kernels.ptr(featP), featP.shape[1], kernels.ptr(base), kernels.ptr(off),
-        kernels.ptr(counts), kernels.ptr(tile_ids), kernels.ptr(nproc),
-        kernels.ptr(order), kernels.ptr(bg_rows),
-        kernels.ptr(tfin), kernels.ptr(tchk), kernels.ptr(g_tiles), rows, channels, tiles_x,
-        config.tile_size, config.chunk, n_chunks, config.alpha_clamp, config.alpha_min,
-        1.0 - config.alpha_clamp, config.transmittance_min, kernels.ptr(out), kernels.ptr(dbg),
-        kernels.stream_ptr(dev),
-    )
-    kernels.check(name, rc)
-    kernels.LAUNCHES[name] += 1
+    kernels.launch(f"pf3_{name}", featP, featP.shape[1], base, off, counts, tile_ids, nproc,
+                   order, bg_rows, tfin, tchk, g_tiles, rows, channels, tiles_x,
+                   config.tile_size, config.chunk, n_chunks, config.alpha_clamp,
+                   config.alpha_min, 1.0 - config.alpha_clamp, config.transmittance_min, out,
+                   dbg)
     return dbg
 
 

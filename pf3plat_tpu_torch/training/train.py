@@ -46,7 +46,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.rasterizer import kernels
+from .. import kernels
 from ..utils.profiling import count, span, stage, tracing
 from .losses import LossCfg, render_loss, total_loss
 
@@ -239,16 +239,8 @@ def adam_norm_cuda(plan: _AdamPlan) -> torch.Tensor:
     float32 tensor [sum of squares, 1 if any element is not finite else 0,
     global norm]."""
     out = torch.empty(3, dtype=torch.float32, device=plan.device)
-    ct = kernels.ctypes
-    fn = kernels.load("adam").pf3_adam_norm
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p, ct.c_int, ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_void_p,
-                   ct.c_void_p]
-    rc = fn(kernels.ptr(plan.items), plan.n_items, kernels.ptr(plan.grads),
-            kernels.ptr(plan.partials), kernels.ptr(plan.sync), kernels.ptr(out),
-            kernels.stream_ptr(plan.device))
-    kernels.check("adam", rc)
-    kernels.LAUNCHES["adam"] += 1
+    kernels.launch("pf3_adam_norm", plan.items, plan.n_items, plan.grads, plan.partials,
+                   plan.sync, out)
     return out
 
 
@@ -260,17 +252,9 @@ def adam_update_cuda(plan: _AdamPlan, step: AdamStep, cfg: OptimizerCfg) -> None
     consts = (step.norm, f32(cfg.grad_clip), f32(1 - ADAM_B1), f32(ADAM_B1), f32(1 - ADAM_B2),
               f32(ADAM_B2), f32(1) / f32(step.bc1), f32(1) / f32(step.bc2), f32(ADAM_EPS_ROOT),
               f32(ADAM_EPS), f32(-step.lr))
-    ct = kernels.ctypes
-    fn = kernels.load("adam").pf3_adam_update
-    fn.restype = ct.c_int
-    fn.argtypes = [ct.c_void_p, ct.c_int, *[ct.c_void_p] * 4, ct.c_int,
-                   *[ct.c_float] * len(consts), ct.c_void_p]
     params, mu, nu = plan.tables
-    rc = fn(kernels.ptr(plan.items), plan.n_items, kernels.ptr(plan.grads), kernels.ptr(params),
-            kernels.ptr(mu), kernels.ptr(nu), int(step.clip), *(float(c) for c in consts),
-            kernels.stream_ptr(plan.device))
-    kernels.check("adam", rc)
-    kernels.LAUNCHES["adam"] += 1
+    kernels.launch("pf3_adam_update", plan.items, plan.n_items, plan.grads, params, mu, nu,
+                   int(step.clip), *(float(c) for c in consts))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from pf3plat_tpu_torch.ops.rasterizer import kernels
+from pf3plat_tpu_torch import kernels
 from pf3plat_tpu_torch.training import train
 from pf3plat_tpu_torch.utils import profiling
 

@@ -447,7 +447,7 @@ def test_public_names_of_the_table_slice(module, names):
     mod = importlib.import_module(module)
     missing = [name for name in names if not hasattr(mod, name)]
     assert not missing, f"{module} lacks {missing}"
-    from pf3plat_tpu_torch.ops.rasterizer import kernels
+    from pf3plat_tpu_torch import kernels
 
     for name in ("table_fwd", "table_bwd", "composite_bwd_blocks", "attention_fwd",
                  "attention_bwd"):
