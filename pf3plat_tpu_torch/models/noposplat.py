@@ -30,8 +30,12 @@ on MASt3R's (DUSt3R's) layout, every parameter trained.
     one Gaussian a pixel of each view, 2 h w a scene.
 
 Attention runs through `layers.attention` (on the card: bf16 SDPA at 257
-tokens, forward and backward). Departures from the paper's code, kept the
-same in the plain reference (`tests/noposplat_reference.py`):
+tokens, forward and backward). In training on the card the trunk (the
+encoder, `ViTTrunk`, and the lockstep decoders, `CrossViewTrunk`) runs as
+CUDA graphs, forward and backward (`NoPoSplat._trunk`): the same kernels,
+launched as four graphs a step in place of some 7,000 launches.
+Departures from the paper's code, kept the same in the plain reference
+(`tests/noposplat_reference.py`):
 
   * the intrinsics token sits at RoPE position (rows of the grid, 0), one
     row below the first column, and is dropped before the heads;
@@ -171,6 +175,66 @@ class DecoderBlock(nn.Module):
         x = x + self.attn(self.norm1(x), rope_x)
         x = x + self.cross_attn(self.norm2(x), self.norm_y(y), rope_x, rope_y)
         return x + self.mlp(self.norm3(x))
+
+
+class ViTTrunk(nn.Module):
+    """The encoder stage of a `NoPoSplat` over its own modules (shared, not
+    copied): normalised images (n, 3, h, w) and normalised intrinsics (n,
+    3, 3) -> tokens (n, rows * cols + 1, width) after `enc_norm`. The RoPE
+    tables of the token positions `pos` are made once, here."""
+
+    def __init__(self, model: "NoPoSplat", pos: torch.Tensor):
+        super().__init__()
+        cfg = model.cfg
+        self.patch_embed, self.intrinsics_embed = model.patch_embed, model.intrinsics_embed
+        self.enc_blocks, self.enc_norm = model.enc_blocks, model.enc_norm
+        self.rope = rope_2d_tables(pos, cfg.enc_embed_dim // cfg.enc_num_heads, cfg.rope_base)
+
+    def forward(self, x, intrinsics):
+        tok = self.patch_embed(x).flatten(2).transpose(1, 2)
+        k = torch.stack([intrinsics[:, 0, 0], intrinsics[:, 1, 1], intrinsics[:, 0, 2],
+                         intrinsics[:, 1, 2]], dim=-1)
+        tok = torch.cat([tok, self.intrinsics_embed(k)[:, None]], dim=1)
+        for blk in self.enc_blocks:
+            tok = blk(tok, self.rope)
+        return self.enc_norm(tok)
+
+
+class CrossViewTrunk(nn.Module):
+    """The lockstep decoders of a `NoPoSplat` over its own modules (shared,
+    not copied): tokens (b, 2, n, width) -> {layer: (view 1, view 2)} of
+    each decoder layer that the DPT heads read (`dpt_hooks`, 1-based; the
+    last layer after `dec_norm`). The RoPE tables of the token positions
+    `pos` are made once, here."""
+
+    def __init__(self, model: "NoPoSplat", pos: torch.Tensor):
+        super().__init__()
+        cfg = model.cfg
+        self.decoder_embed, self.dec_norm = model.decoder_embed, model.dec_norm
+        self.dec_blocks, self.dec_blocks2 = model.dec_blocks, model.dec_blocks2
+        self.hooks = set(cfg.dpt_hooks)
+        self.rope = rope_2d_tables(pos, cfg.dec_embed_dim // cfg.dec_num_heads, cfg.rope_base)
+
+    def forward(self, tok):
+        rope = self.rope
+        f = self.decoder_embed(tok)
+        f1, f2 = f[:, 0], f[:, 1]
+        out = {}
+        for i, (blk1, blk2) in enumerate(zip(self.dec_blocks, self.dec_blocks2), 1):
+            f1, f2 = blk1(f1, f2, rope, rope), blk2(f2, f1, rope, rope)
+            if i == len(self.dec_blocks):
+                f1, f2 = self.dec_norm(f1), self.dec_norm(f2)
+            if i in self.hooks:
+                out[i] = (f1, f2)
+        return out
+
+
+def _replays(stage_fn):
+    """`stage_fn` (a graphed stage) counted in `nopo.graph_replays` at each call."""
+    def replay(*args):
+        count("nopo.graph_replays", 1)
+        return stage_fn(*args)
+    return replay
 
 
 def _upsample2(x: torch.Tensor) -> torch.Tensor:
@@ -316,6 +380,8 @@ class NoPoSplat(nn.Module):
         self.lpips = LPIPS()
         self.lpips.requires_grad_(False)
         self.to(self.device)
+        # the trunk's CUDA graphs by input shapes, dtypes and TF32 flags (`_trunk`)
+        self._trunk_graphs: dict = {}
 
     def trainable_parameters(self) -> list[nn.Parameter]:
         return [p for n, p in self.named_parameters() if not n.startswith("lpips.")]
@@ -324,6 +390,43 @@ class NoPoSplat(nn.Module):
         """Frozen LPIPS distance (b, h, w, 3) x2 -> (b,), its VGG recomputed
         in the backward (as PF3plat's)."""
         return remat(self.lpips, img0, img1)
+
+    def _trunk(self, x: torch.Tensor, intrinsics: torch.Tensor, grid: tuple[int, int],
+               views: tuple[int, int]):
+        """The trunk's two stages (`ViTTrunk`, `CrossViewTrunk`) for `gaussians`'
+        inputs x (b v, 3, h, w) and intrinsics (b v, 3, 3).
+
+        Training on the card (CUDA inputs without a gradient of their own,
+        grad mode on, training mode, no autocast) replays both as CUDA
+        graphs, forward and backward (`torch.cuda.make_graphed_callables`):
+        the trunk's ~2,800 forward launches and their backward's reach the
+        card as four graph launches. The graphs are captured at the first
+        call with these shapes, dtypes and TF32 flags (`nopo.graph_captures`)
+        and kept, one memory pool for each such key. The parameters are
+        graph inputs read where they lie, so a replay sees the optimizer's
+        in-place updates. A replay's backward hands each gradient back as an
+        alias of the backward graph's own buffer, and p.grad keeps it: that
+        is safe while the train steps set p.grad to None before the next
+        forward and the optimizer reads it before the next backward replay
+        overwrites it. Everywhere else (the CPU, no_grad, eval mode) the
+        stages run as modules."""
+        if not (x.is_cuda and torch.is_grad_enabled() and self.training
+                and not torch.is_autocast_enabled("cuda") and not x.requires_grad):
+            pos = token_positions(*grid, x.device)
+            return ViTTrunk(self, pos), CrossViewTrunk(self, pos)
+        key = (x.shape, x.dtype, intrinsics.shape, intrinsics.dtype,
+               torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+        stages = self._trunk_graphs.get(key)
+        if stages is None:
+            count("nopo.graph_captures", 1)
+            pos = token_positions(*grid, x.device)
+            tok = torch.zeros((*views, pos.shape[0], self.cfg.enc_embed_dim), dtype=x.dtype,
+                              device=x.device, requires_grad=True)
+            captured = torch.cuda.make_graphed_callables(
+                (ViTTrunk(self, pos), CrossViewTrunk(self, pos)),
+                ((x.clone(), intrinsics.clone()), (tok,)))
+            stages = self._trunk_graphs[key] = tuple(_replays(g) for g in captured)
+        return stages
 
     def gaussians(self, images: torch.Tensor, intrinsics: torch.Tensor,
                   timer=None) -> Gaussians:
@@ -334,25 +437,12 @@ class NoPoSplat(nn.Module):
         b, v, h, w, _ = images.shape
         grid = (h // cfg.patch_size, w // cfg.patch_size)
         x = (images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2) - 0.5) / 0.5
-        pos = token_positions(*grid, images.device)
+        k = intrinsics.reshape(b * v, 3, 3)
+        vit, crossview = self._trunk(x, k, grid, (b, v))
         with stage("vit", timer, prefix=NOPO):
-            tok = self.patch_embed(x).flatten(2).transpose(1, 2)
-            k = intrinsics.reshape(b * v, 3, 3)
-            k = torch.stack([k[:, 0, 0], k[:, 1, 1], k[:, 0, 2], k[:, 1, 2]], dim=-1)
-            tok = torch.cat([tok, self.intrinsics_embed(k)[:, None]], dim=1)
-            rope = rope_2d_tables(pos, cfg.enc_embed_dim // cfg.enc_num_heads, cfg.rope_base)
-            for blk in self.enc_blocks:
-                tok = blk(tok, rope)
-            tok = self.enc_norm(tok).unflatten(0, (b, v))
+            tok = vit(x, k).unflatten(0, (b, v))
         with stage("crossview", timer, prefix=NOPO):
-            rope = rope_2d_tables(pos, cfg.dec_embed_dim // cfg.dec_num_heads, cfg.rope_base)
-            f = self.decoder_embed(tok)
-            f1, f2 = f[:, 0], f[:, 1]
-            layers = [(tok[:, 0], tok[:, 1])]
-            for blk1, blk2 in zip(self.dec_blocks, self.dec_blocks2):
-                f1, f2 = blk1(f1, f2, rope, rope), blk2(f2, f1, rope, rope)
-                layers.append((f1, f2))
-            layers[-1] = (self.dec_norm(f1), self.dec_norm(f2))
+            layers = {0: (tok[:, 0], tok[:, 1]), **crossview(tok)}
         with stage("heads", timer, prefix=NOPO):
             x = x.unflatten(0, (b, v))
             centres, raw = [], []

@@ -4,6 +4,12 @@ reference (`tests/noposplat_reference.py`) on seeded weights at a tiny size
 2 blocks of width 48), the benchmark's copy of the reference held to it bit
 for bit, and one training step through the port's entry point.
 
+The trunk (ViT, lockstep decoders) takes its eager path off the card, and
+on the card under no_grad and in eval mode; on the card its graphed train
+steps are held to the eager ones from the same weights. The card's tests
+are `cuda`-marked: `python3 -m pytest tests/test_torch_noposplat.py -m cuda
+-o addopts="" --noconftest`.
+
 Tolerances: the port's attention on the CPU rounds q, k, v and the
 probabilities to bf16 (`layers.mxu_attention`, what the card's bf16 SDPA
 does), the reference keeps float32, and everything else is float32 on both
@@ -25,7 +31,9 @@ import noposplat_reference as ref_module
 from pf3plat_tpu_torch.models import layers
 from pf3plat_tpu_torch.models.decoder import DecoderCfg
 from pf3plat_tpu_torch.models.gaussian_adapter import GaussianAdapterCfg
-from pf3plat_tpu_torch.models.noposplat import NoPoSplat, NoPoSplatCfg, token_positions
+from pf3plat_tpu_torch.models.noposplat import (
+    CrossViewTrunk, NoPoSplat, NoPoSplatCfg, ViTTrunk, token_positions)
+from pf3plat_tpu_torch.utils import profiling
 from test_data import make_chunk
 from test_torch_helpers import one_thread  # noqa: F401
 
@@ -280,3 +288,258 @@ def test_run_train_through_main(tmp_path, capsys, monkeypatch, one_thread):
     assert [r["step"] for r in rows] == [1]
     assert all(torch.isfinite(torch.tensor(rows[0][k])) for k in ("loss", "mse", "lpips"))
     assert rows[0]["grad_norm"] > 0
+
+
+def _direct_layers(model, images, k):
+    """The token maps the DPT heads read (the encoder's, then `dpt_hooks`'),
+    from the model's blocks called one by one."""
+    cfg = model.cfg
+    b, v, h, w, _ = images.shape
+    grid = (h // cfg.patch_size, w // cfg.patch_size)
+    x = (images.reshape(b * v, h, w, 3).permute(0, 3, 1, 2) - 0.5) / 0.5
+    pos = token_positions(*grid, images.device)
+    rope = layers.rope_2d_tables(pos, cfg.enc_embed_dim // cfg.enc_num_heads, cfg.rope_base)
+    tok = model.patch_embed(x).flatten(2).transpose(1, 2)
+    kk = k.reshape(b * v, 3, 3)
+    kk = torch.stack([kk[:, 0, 0], kk[:, 1, 1], kk[:, 0, 2], kk[:, 1, 2]], dim=-1)
+    tok = torch.cat([tok, model.intrinsics_embed(kk)[:, None]], dim=1)
+    for blk in model.enc_blocks:
+        tok = blk(tok, rope)
+    tok = model.enc_norm(tok).unflatten(0, (b, v))
+    rope = layers.rope_2d_tables(pos, cfg.dec_embed_dim // cfg.dec_num_heads, cfg.rope_base)
+    f = model.decoder_embed(tok)
+    f1, f2 = f[:, 0], f[:, 1]
+    out = [(tok[:, 0], tok[:, 1])]
+    for blk1, blk2 in zip(model.dec_blocks, model.dec_blocks2):
+        f1, f2 = blk1(f1, f2, rope, rope), blk2(f2, f1, rope, rope)
+        out.append((f1, f2))
+    out[-1] = (model.dec_norm(f1), model.dec_norm(f2))
+    return [out[j] for j in (0, *cfg.dpt_hooks)]
+
+
+def _check_eager_trunk(model, images, k, tmp_path, mode: str):
+    """`model` called on (images, k) in `mode` ("grad", "no_grad" or "eval")
+    runs the trunk as modules: every token map the heads get is bit-equal
+    to the blocks called directly, no graph is captured or replayed."""
+    seen = {}
+    hooks = [head.register_forward_pre_hook(lambda _, args, i=i: seen.update({i: args[0]}))
+             for i, head in enumerate((model.downstream_head1, model.downstream_head2))]
+    grad = torch.no_grad() if mode == "no_grad" else torch.enable_grad()
+    if mode == "eval":
+        model.eval()
+    try:
+        with grad, profiling.trace(tmp_path, window="w"):
+            model(images, k)
+        with torch.no_grad():
+            want = _direct_layers(model, images, k)
+    finally:
+        model.train()
+        for h in hooks:
+            h.remove()
+    for i in (0, 1):
+        assert len(seen[i]) == len(want)
+        for got, direct in zip(seen[i], want):
+            assert torch.equal(got, direct[i][:, :-1])
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    counters = json.loads(path.read_text())[profiling.COUNTERS]
+    assert counters["forwards"] == 1
+    assert counters.get("nopo.graph_replays", 0) == 0
+    assert counters.get("nopo.graph_captures", 0) == 0
+    assert model._trunk_graphs == {}
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "eval"])
+def test_trunk_is_eager_off_the_card(models, tmp_path, mode):
+    """On the CPU the trunk runs as modules in every mode (the card's
+    guards for no_grad and eval mode: the `cuda` test below)."""
+    port, _ = models
+    _check_eager_trunk(port, *_inputs(b=2, seed=7), tmp_path, mode)
+
+
+def test_trunk_stages_are_the_models_modules(models):
+    """The stages share the model's parameters (no copy) and read the
+    decoder layers the heads need, each once."""
+    port, _ = models
+    pos = token_positions(2, 2, "cpu")
+    vit, cross = ViTTrunk(port, pos), CrossViewTrunk(port, pos)
+    ids = {id(p) for p in port.trainable_parameters()}
+    assert {id(p) for p in vit.parameters()} <= ids
+    assert {id(p) for p in cross.parameters()} <= ids
+    assert sum(p.numel() for p in vit.parameters()) + sum(
+        p.numel() for p in cross.parameters()) == sum(
+        p.numel() for n, p in port.named_parameters()
+        if n.split(".")[0] in ("patch_embed", "intrinsics_embed", "enc_blocks", "enc_norm",
+                               "decoder_embed", "dec_blocks", "dec_blocks2", "dec_norm"))
+    tok = torch.randn(1, 2, pos.shape[0], port.cfg.enc_embed_dim)
+    with torch.no_grad():
+        out = cross(tok)
+    assert sorted(out) == sorted(set(port.cfg.dpt_hooks))
+
+
+# --- on the card -------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; on the card: pytest -m cuda (module docstring)")
+    return torch.device("cuda")
+
+
+def _card_batch(b: int, card, seed: int) -> dict:
+    """A batch of `b` stacks of 4 views (2 context, 2 targets) at SIZE."""
+    g = torch.Generator().manual_seed(seed)
+    v = 4
+    images = torch.rand(b, v, SIZE, SIZE, 3, generator=g)
+    extr = torch.eye(4).repeat(b, v, 1, 1)
+    extr[..., 0, 3] = 0.05 * torch.arange(v)
+    ctx = {"image": images, "intrinsics": _inputs(b=b)[1][:, :1].expand(b, v, 3, 3).clone(),
+           "extrinsics": extr, "near": torch.full((b, v), 0.5), "far": torch.full((b, v), 100.0)}
+    return {"context": {n: t.to(card) for n, t in ctx.items()}}
+
+
+def _rel_gap(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm().clamp(min=1e-30))
+
+
+def _card_models(card):
+    torch.manual_seed(0)
+    cfg, _ = _cfgs()
+    graphed = NoPoSplat(cfg, DecoderCfg(), device=card)
+    eager = NoPoSplat(cfg, DecoderCfg(), device=card)
+    eager.load_state_dict(graphed.state_dict())
+    return graphed, eager
+
+
+OPT = dict(lr=1e-3, cosine_lr=False, warm_up_steps=1)  # a constant rate from the first step
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["no_grad", "eval"])
+def test_trunk_is_eager_on_the_card_outside_training(card, tmp_path, mode):
+    """On the card, under no_grad and in eval mode, the trunk runs as
+    modules: nothing is captured or replayed."""
+    model, _ = _card_models(card)
+    images, k = _inputs(b=2, seed=7)
+    _check_eager_trunk(model, images.to(card), k.to(card), tmp_path, mode)
+
+
+@pytest.mark.cuda
+def test_graphed_trunk_steps_match_eager(card):
+    """Two training steps of the trunk (a fixed weighted sum of the token
+    maps the heads read as the loss, backward, the in-place Adam update),
+    replayed as CUDA graphs, against the same steps with the stages run as
+    modules from the same weights: the loss, every gradient and every
+    updated parameter within 1e-4 relative (bit-equal on the H100). The
+    second step replays the first's capture with the updated weights."""
+    from pf3plat_tpu_torch.training import train
+
+    graphed, eager = _card_models(card)
+    b = 2
+    x = torch.rand(b * 2, 3, SIZE, SIZE, generator=torch.Generator().manual_seed(3)).to(card)
+    k = _inputs(b=b)[1].reshape(b * 2, 3, 3).to(card)
+    grid = (SIZE // 16, SIZE // 16)
+    pos = token_positions(*grid, card)
+    runs = {}
+    for name, model in (("graphed", graphed), ("eager", eager)):
+        params = [*ViTTrunk(model, pos).parameters(), *CrossViewTrunk(model, pos).parameters()]
+        opt = train.make_optimizer(train.OptimizerCfg(**OPT))
+        state = train.init_opt_state(params)
+        steps = []
+        for i in range(2):
+            for p in params:
+                p.grad = None
+            if name == "graphed":
+                vit, cross = model._trunk(x, k, grid, (b, 2))
+            else:
+                vit, cross = ViTTrunk(model, pos), CrossViewTrunk(model, pos)
+            tok = vit(x, k).unflatten(0, (b, 2))
+            maps = [tok, *(t for pair in cross(tok).values() for t in pair)]
+            g = torch.Generator().manual_seed(5)
+            loss = sum(((torch.rand(t.shape, generator=g) + 0.5).to(card) * t).sum() for t in maps)
+            loss.backward()
+            state, _ = opt.apply(params, [p.grad for p in params], state)
+            steps.append({"loss": float(loss), "grads": [p.grad.clone() for p in params],
+                          "params": [p.detach().clone() for p in params]})
+        runs[name] = steps
+    assert len(graphed._trunk_graphs) == 1 and eager._trunk_graphs == {}
+    for got, want in zip(runs["graphed"], runs["eager"]):
+        assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"])
+        for key in ("grads", "params"):
+            gaps = [_rel_gap(a, b) for a, b in zip(got[key], want[key])]
+            assert max(gaps) <= 1e-4, (key, max(gaps))
+
+
+# The whole train step's gradients and updates, graphed against eager, each
+# leaf's gap (`_rel_gap`; an update's against the eager update from the
+# same weights). Eager against eager they differ too: the backward outside
+# the trunk adds in no fixed order (the heads' bilinear upsampling, the
+# render) and the bf16 attention operands round those differences up. On
+# the H100 (two steps at b=2, two runs): eager against eager, the worst
+# leaf's gradient 1.0% / 3.8% apart, the median leaf's 0.007% / 0.44%, the
+# median leaf's update 0.01% / 0.35%; graphed against eager, 0.7-0.8% /
+# 2.5-9.1%, 0.007% / 0.48-0.49% and 0.01% / 0.29-0.32%. A doubled or a
+# stale gradient reads 100% or so.
+STEP_GRAD_WORST = 0.25
+STEP_GRAD_MEDIAN = 0.02
+STEP_UPDATE_MEDIAN = 0.02
+
+
+@pytest.mark.cuda
+def test_train_step_captures_once_a_shape(card, tmp_path):
+    """NoPoSplat's train step on the card: the first step captures the
+    trunk (one capture, two replays), the second replays it (no capture,
+    two replays), a batch of another shape captures anew; a model with the
+    stages run as modules replays nothing. After each of the two steps at
+    b=2 (the second from the weights the in-place Adam update left) the
+    loss is the eager one's within 1e-4 relative, and every gradient and
+    every parameter's update within `STEP_*` of the eager ones."""
+    import types
+
+    from pf3plat_tpu_torch.training import train
+    from pf3plat_tpu_torch.training.losses import LossCfg
+
+    graphed, eager = _card_models(card)
+
+    def modules_only(self, x, intrinsics, grid, views):
+        pos = token_positions(*grid, x.device)
+        return ViTTrunk(self, pos), CrossViewTrunk(self, pos)
+
+    eager._trunk = types.MethodType(modules_only, eager)
+    runs = {}
+    for name, model in (("graphed", graphed), ("eager", eager)):
+        step_fn = train.make_noposplat_train_step(model, LossCfg(lpips_weight=0.05),
+                                                  train.OptimizerCfg(**OPT))
+        state = train.init_train_state(model)
+        start = [p.detach().clone() for p in state.params]
+        seen = []
+        for i, b in enumerate((2, 2, 1)):
+            with profiling.trace(tmp_path / f"{name}{i}", window="w"):
+                state, aux = step_fn(state, _card_batch(b, card, seed=10 + i))
+            (path,) = (tmp_path / f"{name}{i}").glob("*.pt.trace.json")
+            counters = json.loads(path.read_text())[profiling.COUNTERS]
+            assert torch.isfinite(aux["loss"])
+            seen.append({"loss": float(aux["loss"]),
+                         "captures": counters.get("nopo.graph_captures", 0),
+                         "replays": counters.get("nopo.graph_replays", 0),
+                         "grads": [p.grad.detach().clone() for p in state.params],
+                         "params": [p.detach().clone() for p in state.params]})
+        runs[name] = seen, start
+    (graphed_steps, start), (eager_steps, _) = runs["graphed"], runs["eager"]
+    assert [s["captures"] for s in graphed_steps] == [1, 0, 1]
+    assert [s["replays"] for s in graphed_steps] == [2, 2, 2]
+    assert [(s["captures"], s["replays"]) for s in eager_steps] == [(0, 0)] * 3
+    assert len(graphed._trunk_graphs) == 2
+    before = start
+    for i, (got, want) in enumerate(zip(graphed_steps[:2], eager_steps[:2])):
+        assert abs(got["loss"] - want["loss"]) <= 1e-4 * abs(want["loss"]), i
+        grads = [_rel_gap(a, b) for a, b in zip(got["grads"], want["grads"])]
+        updates = [_rel_gap(a - p, b - p)
+                   for a, b, p in zip(got["params"], want["params"], before)]
+        print(f"step {i + 1}: loss {got['loss']} {want['loss']} grads worst {max(grads)} "
+              f"median {statistics.median(grads)} updates worst {max(updates)} "
+              f"median {statistics.median(updates)}")
+        assert max(grads) <= STEP_GRAD_WORST, (i, max(grads))
+        assert statistics.median(grads) <= STEP_GRAD_MEDIAN, (i, statistics.median(grads))
+        assert statistics.median(updates) <= STEP_UPDATE_MEDIAN, (i, statistics.median(updates))
+        before = want["params"]
