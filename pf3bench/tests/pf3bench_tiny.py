@@ -1,6 +1,8 @@
-"""A tiny copy of the benchmark for the CPU tests: the repository's metric
-readers with a tiny configuration of the same model, and one cell of each
-traffic kind at 32 x 32."""
+"""A tiny copy of the benchmark for the CPU tests: its metric readers, loops
+and architectures with a tiny configuration of PF3plat, and one cell of each
+of PF3plat's traffic kinds at 32 x 32. Each real cell that a metric lists is replaced by
+the tiny cells that stand for it, and a real cell with no stand-in by none,
+so that a new cell takes no entry here."""
 
 from __future__ import annotations
 
@@ -9,8 +11,7 @@ import shutil
 from pathlib import Path
 
 
-HERE = Path(__file__).resolve().parents[1]
-ROOT = HERE.parent
+ROOT = Path(__file__).resolve().parents[2]
 
 TINY = {
     "model": {"tiny_backbones": True, "max_keypoints": 64, "max_matches": 32,
@@ -35,7 +36,8 @@ TRAFFIC = {
                "frame_shape": [72, 128], "shift": 2, "jpeg_quality": 90, "intrinsics": K,
                "check_steps": 3, "profile_steps": 1},
 }
-# The tiny cells that stand for each cell of the benchmark
+# The tiny cells that stand for a cell of the benchmark; a cell missing here
+# has none, and a metric that lists only such cells lists no tiny cell
 TINY_OF = {"re10k-serve.eval": ["tiny.tserve"],
            "re10k-train.b14": ["tiny.ttrain"]}
 # Limits for the tiny CPU cells, far above what the sound tiny runs read
@@ -47,16 +49,18 @@ LIMITS = {"perceive": 0.05, "keypoints": 0.05, "lightglue": 0.05, "means": 0.05,
           "loss": 1e-3, "grad": 0.05, "update": 0.3, "update_median": 0.1}
 
 
-def write_tiny(root: Path) -> Path:
-    """A checkout-shaped directory under `root` with the tiny benchmark."""
+def write_tiny(root: Path, source: Path = ROOT) -> Path:
+    """A checkout-shaped directory under `root` with the tiny benchmark of
+    the checkout at `source`: its `BENCHMARK.json`, metric readers, loops
+    and architectures."""
     bench = root / "pf3bench"
     for d in ("configs", "traffic", "cells"):
         (bench / d).mkdir(parents=True, exist_ok=True)
     for d in ("metrics", "loops", "architectures"):
-        shutil.copytree(HERE / d, bench / d, dirs_exist_ok=True,
+        shutil.copytree(source / "pf3bench" / d, bench / d, dirs_exist_ok=True,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (bench / "configs" / "tiny.json").write_text(json.dumps({"name": "tiny", "config": TINY}))
-    data = json.loads((ROOT / "BENCHMARK.json").read_text())
+    data = json.loads((source / "BENCHMARK.json").read_text())
     data["configs"] = [{"name": "tiny", "source": "https://arxiv.org/abs/2410.22128",
                         "file": "pf3bench/configs/tiny.json", "reduced": [], "why": "tests"}]
     data["workloads"] = []
@@ -67,6 +71,6 @@ def write_tiny(root: Path) -> Path:
                                   "chips": 1, "why": "tests"})
     for m in data["end_to_end"] + data["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = [t for w in m["workloads"] for t in TINY_OF[w]]
+            m["workloads"] = [t for w in m["workloads"] for t in TINY_OF.get(w, [])]
     (root / "BENCHMARK.json").write_text(json.dumps(data))
     return root

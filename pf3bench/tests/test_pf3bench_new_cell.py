@@ -1,12 +1,16 @@
 """Adding a cell takes only new files: a throwaway configuration, traffic
 mix, loop and metric reader dropped into a copy of the benchmark, and
 entries added to its BENCHMARK.json, are listed and run by the unchanged
-harness; a traffic kind with no loop file is refused."""
+harness; a traffic kind with no loop file is refused. A cell added so to
+a copy of the real benchmark, and listed in its existing metrics, leaves
+every file there as it was and the CPU tests' tiny benchmark as it was."""
 
 import json
+import shutil
 
 import pytest
-from pf3bench_tiny import TINY, TRAFFIC, write_tiny
+from pf3bench_tiny import ROOT, TINY, TRAFFIC, write_tiny
+from test_pf3bench_new_architecture import CPU, SEED, add_mlp_cell
 
 from pf3bench.run import run_cell
 from pf3bench.spec import Benchmark
@@ -74,3 +78,53 @@ def test_new_files_make_a_new_cell(tmp_path):
 def test_a_kind_without_a_loop_is_refused(tiny):
     with pytest.raises(FileNotFoundError, match="no_such_kind"):
         tiny.loop("no_such_kind")
+
+
+def _files(here):
+    return {p.relative_to(here): p.read_bytes() for p in sorted(here.rglob("*"))
+            if p.is_file() and "__pycache__" not in p.parts}
+
+
+def _listed(root):
+    data = json.loads((root / "BENCHMARK.json").read_text())
+    return {m["name"]: m.get("workloads") for m in data["end_to_end"] + data["per_layer"]}
+
+
+def test_a_real_cell_is_new_files_and_entries(tmp_path):
+    """The throwaway `mlp.rows` cell (a new architecture, loop kind, cell
+    file and metric readers) added to a copy of the real benchmark, listed
+    in `request_ms`, `request_ms_p90` and a new per-layer metric."""
+    root = tmp_path / "checkout"
+    shutil.copytree(ROOT / "pf3bench", root / "pf3bench",
+                    ignore=shutil.ignore_patterns("__pycache__", "out"))
+    shutil.copy(ROOT / "BENCHMARK.json", root / "BENCHMARK.json")
+    repo = {k: v for k, v in _files(ROOT / "pf3bench").items() if k.parts[0] != "out"}
+    add_mlp_cell(root)
+    (root / "pf3bench" / "metrics" / "rows_a_request.mlp.py").write_text(
+        '"""rows_a_request.mlp: rows a request carries (a count)."""\n\n\n'
+        'def read(run):\n    return float(run["traffic"]["batch"])\n')
+    data = json.loads((root / "BENCHMARK.json").read_text())
+    for m in data["end_to_end"]:
+        if m["name"] in ("request_ms", "request_ms_p90"):
+            m["workloads"].append("mlp.rows")
+    data["per_layer"].append({"name": "rows_a_request.mlp", "unit": "rows", "better": "higher",
+                              "source": "program_counter", "layer": "traffic",
+                              "moves": "request_ms", "workloads": ["mlp.rows"]})
+    (root / "BENCHMARK.json").write_text(json.dumps(data))
+
+    tiny = _listed(write_tiny(tmp_path / "tiny", source=root))
+    assert tiny == dict(_listed(write_tiny(tmp_path / "base")), **{
+        "row_us.mlp": [], "rows_a_request.mlp": []})
+    assert tiny["request_ms"] == tiny["request_ms_p90"] == ["tiny.tserve"]
+
+    bench = Benchmark(root, root / "pf3bench")
+    out = tmp_path / "out"
+    r = run_cell(bench, "mlp.rows", SEED, 0.3, False, CPU, out=out)
+    assert r["correct"], r["checks"]
+    assert set(r["metrics"]) == {"setup_s", "request_ms", "request_ms_p90", "row_us.mlp"}
+    assert all(m["value"] > 0 for m in r["metrics"].values())
+    r = run_cell(bench, "mlp.rows", SEED, 0.3, True, CPU, out=out)
+    assert r["correct"], r["checks"]
+    assert r["metrics"] == {"rows_a_request.mlp": {"value": 16.0, "unit": "rows"}}
+
+    assert {k: v for k, v in _files(root / "pf3bench").items() if k in repo} == repo
