@@ -13,11 +13,13 @@ Modes:
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import sys
 import time
 from pathlib import Path
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -48,34 +50,85 @@ def model_config(cfg):
     )
 
 
-ARCHITECTURES = ("pf3plat", "noposplat")
+@dataclasses.dataclass(frozen=True)
+class Architecture:
+    """What the entry points do with one `model.architecture`: `build(cfg,
+    device)` makes the model from its config sections; `train_step(cfg,
+    model, mesh)` makes its train step (None: the model is served through
+    its forward alone, and `mode=train` and `mode=test` refuse it);
+    `validates`: training renders the validation panels (they read PF3plat's
+    encoder outputs)."""
+    build: Callable
+    train_step: Optional[Callable]
+    validates: bool
 
 
-def build_model(cfg, device=None):
-    """The model `model.architecture` names: PF3plat from the `model` and
-    `encoder` sections, or NoPoSplat from the `noposplat` section; both
-    render with the `decoder` section."""
-    arch = cfg.model.architecture
-    if arch == "noposplat":
-        from .models.noposplat import NoPoSplat
-
-        return NoPoSplat(cfg.noposplat, cfg.decoder, device=device)
-    if arch != "pf3plat":
-        raise ValueError(f"model.architecture: {arch!r} is none of {ARCHITECTURES}")
+def _build_pf3plat(cfg, device):
     from .models.pf3plat import PF3plat
 
     return PF3plat(model_config(cfg), device=device)
 
 
+def _build_noposplat(cfg, device):
+    from .models.noposplat import NoPoSplat
+
+    return NoPoSplat(cfg.noposplat, cfg.decoder, device=device)
+
+
+def _build_vggt(cfg, device):
+    from .models.vggt import VGGT
+
+    return VGGT(cfg.vggt, device=device)
+
+
+def _pf3plat_step(cfg, model, mesh):
+    from .training.train import make_model_train_step
+
+    return make_model_train_step(model, cfg.loss, cfg.optimizer, mesh=mesh)
+
+
+def _noposplat_step(cfg, model, mesh):
+    from .training.train import make_noposplat_train_step
+
+    if mesh is not None:
+        raise ValueError("model.architecture=noposplat trains on one device")
+    return make_noposplat_train_step(model, cfg.loss, cfg.optimizer)
+
+
+# PF3plat from the `model` and `encoder` sections, NoPoSplat from `noposplat`
+# (both render with `decoder`), VGGT from `vggt`
+ARCHITECTURES = {
+    "pf3plat": Architecture(_build_pf3plat, _pf3plat_step, validates=True),
+    "noposplat": Architecture(_build_noposplat, _noposplat_step, validates=False),
+    "vggt": Architecture(_build_vggt, None, validates=False),
+}
+
+
+def architecture(cfg) -> Architecture:
+    """The entry of `model.architecture` in `ARCHITECTURES`."""
+    name = cfg.model.architecture
+    if name not in ARCHITECTURES:
+        raise ValueError(f"model.architecture: {name!r} is none of {tuple(ARCHITECTURES)}")
+    return ARCHITECTURES[name]
+
+
+def build_model(cfg, device=None):
+    """The model `model.architecture` names."""
+    return architecture(cfg).build(cfg, device)
+
+
+def trained(cfg) -> Architecture:
+    """`architecture(cfg)`, refused where it has no train step."""
+    arch = architecture(cfg)
+    if arch.train_step is None:
+        raise ValueError(f"model.architecture={cfg.model.architecture} is served through its "
+                         "forward alone: it has no train step, nor checkpoints to test")
+    return arch
+
+
 def train_step_for(cfg, model, mesh=None):
     """The train step of the model's architecture."""
-    from .training.train import make_model_train_step, make_noposplat_train_step
-
-    if cfg.model.architecture == "noposplat":
-        if mesh is not None:
-            raise ValueError("model.architecture=noposplat trains on one device")
-        return make_noposplat_train_step(model, cfg.loss, cfg.optimizer)
-    return make_model_train_step(model, cfg.loss, cfg.optimizer, mesh=mesh)
+    return trained(cfg).train_step(cfg, model, mesh)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -161,6 +214,7 @@ def run_train(cfg, device=None) -> None:
     from .training.train import init_train_state
     from .utils.logging import LocalLogger
 
+    arch = trained(cfg)
     initialize_multihost()  # from a torchrun-style environment, where there is one
     dev = resolve_device(device)
     rank, world = _world()
@@ -269,8 +323,7 @@ def run_train(cfg, device=None) -> None:
     t0 = time.time()
     batch = to_batch(first)
     step = int(state.step)
-    # the validation panels read PF3plat's encoder outputs
-    validate = rank == 0 and cfg.model.architecture == "pf3plat"
+    validate = rank == 0 and arch.validates
     if cfg.train.sanity_validation and step == 0 and validate:
         # Reference `num_sanity_val_steps` — fail fast on broken
         # visualization/render paths before hours of training.
@@ -372,6 +425,7 @@ def run_test(cfg, device=None) -> None:
     from .training.checkpoints import CheckpointManager, load_frozen_state
     from .training.train import init_train_state
 
+    trained(cfg)
     dev = resolve_device(device)
     batches = batch_iterator(cfg, "test", 0, 1, lambda: 0)
     first = next(batches)

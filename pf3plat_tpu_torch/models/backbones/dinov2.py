@@ -1,7 +1,14 @@
 """DINOv2 ViT, the frozen backbone inside UniDepth-V2 (port of
 `pf3plat_tpu/models/backbones/dinov2.py`), with the released state-dict
 names (`patch_embed.proj`, `blocks.i.{norm1,attn.qkv,attn.proj,ls1.gamma,
-norm2,mlp.fc1,mlp.fc2,ls2.gamma}`, `norm`, `cls_token`, `pos_embed`)."""
+norm2,mlp.fc1,mlp.fc2,ls2.gamma}`, `norm`, `cls_token`, `pos_embed`,
+`register_tokens`).
+
+VGGT's patch embedding is the same network with registers
+(`dinov2_vitl14_reg`): `num_register_tokens` tokens placed after the cls
+token once the position table is added, and the table resized with
+antialiasing (`interpolate_antialias`). The defaults (no registers, no
+antialiasing) are UniDepth's."""
 
 from __future__ import annotations
 
@@ -26,6 +33,8 @@ class ViTCfg:
     layerscale_init: float = 1.0
     pos_embed_size: int = 37
     use_norm: bool = True
+    num_register_tokens: int = 0
+    interpolate_antialias: bool = False
 
     @staticmethod
     def vit_large() -> "ViTCfg":
@@ -83,7 +92,8 @@ class _PatchEmbed(nn.Module):
 
 class DINOv2(nn.Module):
     """For each layer index in `out_layers`: patch tokens (b, hp, wp, dim)
-    and cls token (b, 1, dim), after the final LayerNorm when `use_norm`."""
+    and cls token (b, 1, dim), after the final LayerNorm when `use_norm`;
+    the register tokens, between the two, are in neither."""
 
     def __init__(self, cfg: ViTCfg, out_layers: Sequence[int] = (11, 23)):
         super().__init__()
@@ -94,6 +104,8 @@ class DINOv2(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d))
         self.pos_embed = nn.Parameter(
             torch.randn(1, cfg.pos_embed_size**2 + 1, d) * 0.02)
+        self.register_tokens = nn.Parameter(
+            torch.zeros(1, cfg.num_register_tokens, d)) if cfg.num_register_tokens else None
         self.blocks = nn.ModuleList([Block(cfg) for _ in range(cfg.depth)])
         self.norm = nn.LayerNorm(d, eps=1e-6) if cfg.use_norm else None
 
@@ -108,16 +120,21 @@ class DINOv2(nn.Module):
         if (hp, wp) != (c.pos_embed_size, c.pos_embed_size):
             grid = patch_pos.reshape(1, c.pos_embed_size, c.pos_embed_size, -1)
             grid = F.interpolate(grid.permute(0, 3, 1, 2).float(), size=(hp, wp),
-                                 mode="bicubic", align_corners=False)
+                                 mode="bicubic", align_corners=False,
+                                 antialias=c.interpolate_antialias)
             patch_pos = grid.permute(0, 2, 3, 1).reshape(1, hp * wp, -1).to(x.dtype)
         x = x + patch_pos
         cls_tok = (self.cls_token + cls_pos).expand(b, 1, -1).to(x.dtype)
-        x = torch.cat([cls_tok, x], dim=1)
+        special = [cls_tok]
+        if self.register_tokens is not None:
+            special.append(self.register_tokens.expand(b, -1, -1).to(x.dtype))
+        x = torch.cat([*special, x], dim=1)
+        first = x.shape[1] - hp * wp  # the first patch token
         patch_taps, cls_taps = [], []
         for i, blk in enumerate(self.blocks):
             x = blk(x)
             if i in self.out_layers:
                 out = self.norm(x) if self.norm is not None else x
                 cls_taps.append(out[:, :1])
-                patch_taps.append(out[:, 1:].reshape(b, hp, wp, -1))
+                patch_taps.append(out[:, first:].reshape(b, hp, wp, -1))
         return patch_taps, cls_taps

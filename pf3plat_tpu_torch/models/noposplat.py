@@ -97,10 +97,10 @@ class NoPoSplatCfg:
 
 
 class Mlp(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, out: Optional[int] = None):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc2 = nn.Linear(hidden, out or dim)
 
     def forward(self, x):
         return self.fc2(gelu_exact(self.fc1(x)))
@@ -242,29 +242,38 @@ def _upsample2(x: torch.Tensor) -> torch.Tensor:
 
 
 class ResidualConvUnit(nn.Module):
-    def __init__(self, dim: int):
+    """x + conv2(relu(conv1(relu(x)))); with `relu_skip` the residual is
+    relu(x), as in a unit whose first ReLU works in place (VGGT's DPT)."""
+
+    def __init__(self, dim: int, relu_skip: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(dim, dim, 3, padding=1)
         self.conv2 = nn.Conv2d(dim, dim, 3, padding=1)
+        self.relu_skip = relu_skip
 
     def forward(self, x):
-        return x + self.conv2(F.relu(self.conv1(F.relu(x))))
+        a = F.relu(x)
+        return (a if self.relu_skip else x) + self.conv2(F.relu(self.conv1(a)))
 
 
 class FusionBlock(nn.Module):
     """DPT's feature fusion: the skip input through a residual unit added,
-    a residual unit, 2x bilinear upsampling, a 1x1 convolution."""
+    a residual unit, bilinear resampling (aligned corners) by 2x or to
+    `size`, a 1x1 convolution."""
 
-    def __init__(self, dim: int, skip: bool):
+    def __init__(self, dim: int, skip: bool, relu_skip: bool = False):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(dim) if skip else None
-        self.resConfUnit2 = ResidualConvUnit(dim)
+        self.resConfUnit1 = ResidualConvUnit(dim, relu_skip) if skip else None
+        self.resConfUnit2 = ResidualConvUnit(dim, relu_skip)
         self.out_conv = nn.Conv2d(dim, dim, 1)
 
-    def forward(self, x, skip=None):
+    def forward(self, x, skip=None, size: Optional[tuple[int, int]] = None):
         if skip is not None:
             x = x + self.resConfUnit1(skip)
-        return self.out_conv(_upsample2(self.resConfUnit2(x)))
+        x = self.resConfUnit2(x)
+        x = _upsample2(x) if size is None else F.interpolate(
+            x, size=size, mode="bilinear", align_corners=True)
+        return self.out_conv(x)
 
 
 class DPTHead(nn.Module):

@@ -22,6 +22,7 @@ from ..data.view_samplers import BoundedSamplerCfg
 from ..models.decoder import DecoderCfg
 from ..models.encoder import EncoderCfg
 from ..models.noposplat import NoPoSplatCfg
+from ..models.vggt import VGGTCfg
 from ..training.checkpoints import CheckpointCfg
 from ..training.losses import LossCfg
 from ..training.train import OptimizerCfg
@@ -84,7 +85,8 @@ class TestCfg:
 @dataclasses.dataclass
 class ModelCfg:
     # The model the entry points build: "pf3plat" (`model`'s other keys,
-    # `encoder`) or "noposplat" (the `noposplat` section).
+    # `encoder`), "noposplat" (the `noposplat` section) or "vggt" (the
+    # `vggt` section; served only).
     architecture: str = "pf3plat"
     tiny_backbones: bool = False   # tiny ViT for smoke tests / CI
     max_keypoints: int = 1024
@@ -115,6 +117,7 @@ class RootCfg:
     model: ModelCfg = dataclasses.field(default_factory=ModelCfg)
     encoder: EncoderCfg = dataclasses.field(default_factory=EncoderCfg)
     noposplat: NoPoSplatCfg = dataclasses.field(default_factory=NoPoSplatCfg)
+    vggt: VGGTCfg = dataclasses.field(default_factory=VGGTCfg)
     decoder: DecoderCfg = dataclasses.field(default_factory=DecoderCfg)
     loss: LossCfg = dataclasses.field(default_factory=LossCfg)
     optimizer: OptimizerCfg = dataclasses.field(default_factory=OptimizerCfg)

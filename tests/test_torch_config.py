@@ -18,6 +18,7 @@ import torch
 from pf3plat_tpu.utils import config as jconfig
 
 from pf3plat_tpu_torch.models.noposplat import NoPoSplatCfg
+from pf3plat_tpu_torch.models.vggt import VGGTCfg
 from pf3plat_tpu_torch.utils import config as tconfig
 
 CONFIG_DIR = Path(__file__).resolve().parents[1] / "configs"
@@ -29,13 +30,14 @@ ENCODER_KNOBS = {"remat": True, "remat_mode": "selective", "unet_dtype": "float3
 
 def as_tree(cfg) -> dict:
     """A config as nested dicts. The port's own keys, which the JAX package
-    has no twin of (`model.architecture` and the `noposplat` section of the
-    port's second architecture), must be at their defaults and are left
-    out; every other field is compared."""
+    has no twin of (`model.architecture` and the `noposplat` and `vggt`
+    sections of the port's other architectures), must be at their defaults
+    and are left out; every other field is compared."""
     tree = dataclasses.asdict(cfg)
     if "noposplat" in tree:
         assert tree["model"].pop("architecture") == "pf3plat"
         assert tree.pop("noposplat") == dataclasses.asdict(NoPoSplatCfg())
+        assert tree.pop("vggt") == dataclasses.asdict(VGGTCfg())
     return tree
 
 
